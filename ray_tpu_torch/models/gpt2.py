@@ -1,0 +1,150 @@
+"""GPT-2 in PyTorch, inference only: the port of ``ray_tpu/models/gpt2.py``.
+
+Same structure and parameter names as the flax model (fused QKV, pre-LN
+blocks, tanh-GELU MLP, untied ``lm_head`` without bias), so a flax param tree
+loads through ``models/convert.params_from_flax``.  Parameters are f32 and
+compute runs in ``config.dtype`` (bf16 by default), as flax's ``dtype=``
+does.  Attention is the hand-written flash kernel (``attention_impl="flash"``)
+or the naive reference.  Ring attention and MoE blocks wait for later slices;
+training (remat, the loss) waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+
+# flax LayerNorm's default epsilon (torch's is 1e-5)
+LN_EPS = 1e-6
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    dropout: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+    attention_impl: str = "flash"  # "flash" | "reference"
+    moe_every: int = 0
+
+    def __post_init__(self):
+        if self.attention_impl == "ring":
+            raise NotImplementedError(
+                "ring attention is not ported yet (ROADMAP queue A)")
+        if self.attention_impl not in ("flash", "reference"):
+            raise ValueError(f"unknown attention_impl "
+                             f"{self.attention_impl!r}")
+        if self.moe_every > 0:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP queue A)")
+
+    @staticmethod
+    def small() -> "GPT2Config":
+        return GPT2Config()
+
+    @staticmethod
+    def tiny() -> "GPT2Config":
+        return GPT2Config(vocab_size=512, n_positions=128, n_embd=64,
+                          n_layer=2, n_head=4)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _layernorm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype):
+    # statistics in f32, output in the compute type (flax's LayerNorm)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        LN_EPS).to(dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, config: GPT2Config):
+        super().__init__()
+        self.config = config
+        E = config.n_embd
+        self.qkv_proj = nn.Linear(E, 3 * E)
+        self.out_proj = nn.Linear(E, E)
+
+    def forward(self, x):
+        cfg = self.config
+        B, S, E = x.shape
+        H = cfg.n_head
+        D = E // H
+        qkv = _dense(self.qkv_proj, x, cfg.dtype)
+        # contiguous thirds, then (B, S, H, D) -> (B, H, S, D)
+        q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
+                   for t in qkv.split(E, dim=-1))
+        if cfg.attention_impl == "reference":
+            out = mha_reference(q, k, v, causal=True)
+        else:
+            out = flash_attention(q, k, v, causal=True)
+        out = out.transpose(1, 2).reshape(B, S, E)
+        return _dense(self.out_proj, out, cfg.dtype)
+
+
+class MlpBlock(nn.Module):
+    def __init__(self, config: GPT2Config):
+        super().__init__()
+        self.config = config
+        self.fc_in = nn.Linear(config.n_embd, 4 * config.n_embd)
+        self.fc_out = nn.Linear(4 * config.n_embd, config.n_embd)
+
+    def forward(self, x):
+        dtype = self.config.dtype
+        h = F.gelu(_dense(self.fc_in, x, dtype), approximate="tanh")
+        return _dense(self.fc_out, h, dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, config: GPT2Config):
+        super().__init__()
+        self.config = config
+        self.ln_1 = nn.LayerNorm(config.n_embd, eps=LN_EPS)
+        self.attn = Attention(config)
+        self.ln_2 = nn.LayerNorm(config.n_embd, eps=LN_EPS)
+        self.mlp = MlpBlock(config)
+
+    def forward(self, x):
+        dtype = self.config.dtype
+        x = x + self.attn(_layernorm(self.ln_1, x, dtype))
+        return x + self.mlp(_layernorm(self.ln_2, x, dtype))
+
+
+class GPT2LMModel(nn.Module):
+    """``GPT2LMModel(config, device=None)``: f32 parameters on ``device``
+    (the CUDA card unless ``"cpu"`` is passed), frozen — this slice serves
+    inference only."""
+
+    def __init__(self, config: GPT2Config, device=None):
+        super().__init__()
+        self.config = config
+        self.wte = nn.Embedding(config.vocab_size, config.n_embd)
+        self.wpe = nn.Embedding(config.n_positions, config.n_embd)
+        self.h = nn.ModuleList(Block(config) for _ in range(config.n_layer))
+        self.ln_f = nn.LayerNorm(config.n_embd, eps=LN_EPS)
+        self.lm_head = nn.Linear(config.n_embd, config.vocab_size,
+                                 bias=False)
+        self.requires_grad_(False)
+        self.to(resolve_device(device))
+
+    def forward(self, input_ids):
+        cfg = self.config
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)[None, :]
+        x = (self.wte.weight.to(cfg.dtype)[input_ids]
+             + self.wpe.weight.to(cfg.dtype)[pos])
+        for block in self.h:
+            x = block(x)
+        x = _layernorm(self.ln_f, x, cfg.dtype)
+        return _dense(self.lm_head, x, cfg.dtype)
