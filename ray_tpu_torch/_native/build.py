@@ -7,8 +7,15 @@ plain C interface (no PyTorch headers, no ninja), so a build takes seconds:
          -shared -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 Libraries land in ``ray_tpu_torch/_build/`` (git-ignored), keyed by a hash of
-the source and the flags, built at first use under a file lock so that
+the source, every ``csrc`` header it includes (``#include "..."``, followed
+recursively) and the flags, built at first use under a file lock so that
 concurrent processes build once.  A failed build raises; nothing falls back.
+The ptxas report of each library (registers, shared memory, spills) is kept
+beside it as ``lib<name>-<hash>.ptxas.txt``.
+
+TMA tensor maps are encoded on the host with ``cuTensorMapEncodeTiled``,
+which the kernels reach through ``cudaGetDriverEntryPoint``: the libraries
+link only the CUDA runtime, no ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -17,12 +24,13 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -32,8 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build made by this
-# process, by kernel source name
+# ptxas report (registers, shared memory, spills) of each library this
+# process built or found built, by kernel source name
 build_logs: Dict[str, str] = {}
 
 
@@ -52,23 +60,46 @@ def sources() -> list:
     return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes, recursively,
+    in a fixed order."""
+    seen, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.exists():
+            continue
+        seen.append(path)
+        todo.extend(path.parent / inc.decode()
+                    for inc in _INCLUDE.findall(path.read_bytes()))
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     out = library_path(name)
     if out.exists():
+        _read_log(name, out)
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():  # another process built it while we waited
+            _read_log(name, out)
             return out
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
@@ -78,9 +109,16 @@ def build(name: str) -> Path:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {name}.cu "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        _log_path(out).write_text(proc.stderr)
         os.replace(tmp, out)
         build_logs[name] = proc.stderr
     return out
+
+
+def _read_log(name: str, lib: Path) -> None:
+    log = _log_path(lib)
+    if name not in build_logs and log.exists():
+        build_logs[name] = log.read_text()
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

@@ -7,6 +7,13 @@ Counterpart of ``ray_tpu/ops/attention.py``:
 - ``flash_attention_fwd_plain`` mirrors ``_flash_forward`` (:136-185)
   blockwise: the same padding, online-softmax recurrence, causal block skip,
   masked-key handling and fully-masked-row convention, in PyTorch;
+- ``split_plan`` cuts the visible KV tiles of each query tile into
+  contiguous runs (split-KV) when the grid would not fill the card;
+  ``flash_attention_fwd_split_plain`` and ``merge_partials_plain`` are the
+  plain versions of the split kernel and its combine kernel: un-normalised
+  f32 partials ``(m, l, acc)`` as ``_chunk_attention`` (:296-313) returns
+  them, merged as ``_online_merge`` (:287-293) and normalised as the Pallas
+  kernel's epilogue (:126-128);
 - ``flash_attention_fwd`` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches ``csrc/flash_fwd.cu`` (which replaces
   the Pallas kernel ``_flash_fwd_kernel``, :66-129) or raises;
@@ -20,7 +27,9 @@ autograd would need it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,13 +38,26 @@ DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' tiles: 64 keys each; 64 query rows, or up to 16 in the
+# decode kernel
+KERNEL_BLOCK_Q = 64
+KERNEL_BLOCK_K = 64
+DECODE_MAX_SQ = 16
+# variant name -> the C entry's variant code
+_VARIANTS = {"simt": 0, "wgmma": 1, "decode": 2}
+MAX_SPLITS = 32
 
 # Launches of each hand-written kernel, counted by its wrapper where it
 # launches and nowhere else.  A run resets a count to 0 and reads it back to
 # show which kernels its path went through.
-KERNEL_LAUNCHES = {"flash_fwd": 0}
+KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_combine": 0}
+# What the last CUDA launch of the flash forward chose: variant, splits,
+# grid, and which inputs it copied to aligned memory.
+LAST_PLAN: Optional[Dict] = None
 
 _fn = None
+_combine_fn = None
+_num_sms: Dict[int, int] = {}
 
 
 # =========================================================== reference
@@ -117,24 +139,225 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     return out[:, :, :s_q].to(q.dtype), lse[:, :, :s_q]
 
 
+# ========================================================= split plan
+def _visible_tiles(q0: int, q_end: int, s_k: int, causal: bool,
+                   q_offset: int, k_offset: int, block_k: int) -> int:
+    """KV tiles that the real query rows [q0, q_end) can see (the kernels'
+    ``visible_tiles``)."""
+    n = -(-s_k // block_k)
+    if causal:
+        last_k = q_end - 1 + q_offset - k_offset
+        n = 0 if last_k < 0 else min(n, last_k // block_k + 1)
+    return n
+
+
+def _split_runs(n: int, num_splits: int) -> Tuple[Tuple[int, int], ...]:
+    """``n`` tiles cut into ``num_splits`` contiguous runs (start, count),
+    as the kernels cut them; a run may be empty."""
+    bounds = [s * n // num_splits for s in range(num_splits + 1)]
+    return tuple((bounds[s], bounds[s + 1] - bounds[s])
+                 for s in range(num_splits))
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """``runs[iq][s] = (first tile, tiles)`` of split ``s`` of query tile
+    ``iq``, in units of ``block_k`` keys."""
+    num_splits: int
+    block_q: int
+    block_k: int
+    runs: Tuple[Tuple[Tuple[int, int], ...], ...]
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(B: int, H: int, Sq: int, Sk: int, causal: bool,
+               q_offset: int, k_offset: int, block_q: int, block_k: int,
+               num_sms: int) -> SplitPlan:
+    """How the flash kernels cut the KV axis.  A pure function of shapes,
+    so a repeated call repeats its plan and its results.
+
+    Splits are taken only when ``B*H*ceil(Sq/block_q)`` CTAs are fewer than
+    ``num_sms``: then ``ceil(num_sms / CTAs)`` splits, at most the visible
+    tiles of the longest query tile and at most ``MAX_SPLITS``.  Cached:
+    the serving path asks for the same few shapes at every step."""
+    n_q = -(-Sq // block_q)
+    vis = [_visible_tiles(iq * block_q, min((iq + 1) * block_q, Sq), Sk,
+                          causal, q_offset, k_offset, block_k)
+           for iq in range(n_q)]
+    ctas = B * H * n_q
+    splits = 1
+    if 0 < ctas < num_sms:
+        splits = max(1, min(-(-num_sms // ctas), max(vis, default=0),
+                            MAX_SPLITS))
+    return SplitPlan(splits, block_q, block_k,
+                     tuple(_split_runs(n, splits) for n in vis))
+
+
+def flash_attention_fwd_split_plain(q, k, v, *, causal: bool = True,
+                                    sm_scale: Optional[float] = None,
+                                    q_offset: int = 0, k_offset: int = 0,
+                                    num_splits: int = 1,
+                                    block_q: int = KERNEL_BLOCK_Q,
+                                    block_k: int = KERNEL_BLOCK_K):
+    """The split kernel's function in PyTorch: for each query tile and each
+    of ``num_splits`` runs of its visible KV tiles, the online-softmax
+    recurrence over that run only.  Returns un-normalised f32 partials
+    ``(acc, m, l)``: acc (B,H,splits,Sq,D), m and l (B,H,splits,Sq); an
+    empty or fully masked run carries m = -1e30, l = 0, acc = 0."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    dev = q.device
+    qf = q.float() * sm_scale
+    kf, vf = k.float(), v.float()
+    acc = torch.zeros((b, h, num_splits, s_q, d), device=dev)
+    m = torch.full((b, h, num_splits, s_q), NEG_INF, device=dev)
+    l = torch.zeros((b, h, num_splits, s_q), device=dev)
+    for iq in range(-(-s_q // block_q)):
+        r0, r1 = iq * block_q, min((iq + 1) * block_q, s_q)
+        n = _visible_tiles(r0, r1, s_k, causal, q_offset, k_offset, block_k)
+        qb = qf[:, :, r0:r1]
+        q_pos = torch.arange(r0, r1, device=dev)[:, None] + q_offset
+        for split, (start, count) in enumerate(_split_runs(n, num_splits)):
+            mi = torch.full((b, h, r1 - r0), NEG_INF, device=dev)
+            li = torch.zeros((b, h, r1 - r0), device=dev)
+            ai = torch.zeros((b, h, r1 - r0, d), device=dev)
+            for t in range(start, start + count):
+                k0, k1 = t * block_k, min((t + 1) * block_k, s_k)
+                sc = qb @ kf[:, :, k0:k1].transpose(-1, -2)
+                if causal:
+                    k_pos = torch.arange(k0, k1, device=dev)[None, :]
+                    sc = torch.where(q_pos >= k_pos + k_offset, sc, NEG_INF)
+                m_new = torch.maximum(mi, sc.amax(dim=-1))
+                # a row with no visible key so far keeps p = 0
+                p = torch.where(m_new[..., None] <= NEG_INF / 2, 0.0,
+                                torch.exp(sc - m_new[..., None]))
+                alpha = torch.exp(mi - m_new)
+                li = li * alpha + p.sum(dim=-1)
+                ai = ai * alpha[..., None] + p @ vf[:, :, k0:k1]
+                mi = m_new
+            acc[:, :, split, r0:r1] = ai
+            m[:, :, split, r0:r1] = mi
+            l[:, :, split, r0:r1] = li
+    return acc, m, l
+
+
+def merge_partials_plain(acc, m, l, dtype=torch.float32):
+    """The combine kernel's function: merge the splits (axis 2) of
+    ``(acc, m, l)`` as ``_online_merge`` does, then normalise.  Returns
+    ``(o, lse)``: o (B,H,Sq,D) in ``dtype``; a row dead in every split gives
+    o = 0 and lse = -1e30."""
+    mx = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - mx)
+    total = (l * w).sum(dim=2)
+    o = (acc * w[..., None]).sum(dim=2)
+    safe = torch.where(total == 0.0, 1.0, total)
+    lse = torch.where(total == 0.0, NEG_INF, mx[:, :, 0] + torch.log(safe))
+    return (o / safe[..., None]).to(dtype), lse
+
+
 # ============================================================ kernel
 def _kernel():
-    global _fn
+    global _fn, _combine_fn
     if _fn is None:
         from ray_tpu_torch._native import build
 
-        fn = build.load("flash_fwd").ray_flash_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        lib = build.load("flash_fwd")
+        fn = lib.ray_flash_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_int64] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        comb = lib.ray_flash_fwd_combine
+        comb.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
+        comb.restype = ctypes.c_int
+        _fn, _combine_fn = fn, comb
+    return _fn, _combine_fn
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _num_sms:
+        _num_sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _num_sms[idx]
+
+
+@functools.lru_cache(maxsize=4096)
+def _kernel_strides(shape: Tuple[int, ...], stride: Tuple[int, ...],
+                    esize: int) -> Tuple[Tuple[int, ...], bool]:
+    """Strides (elements) of dims 0..2 as the kernels read them, and whether
+    each is a 16-byte multiple.  A dim of size 1 is never stepped, so its
+    stride is set to the span of the dims inside it: any value works there,
+    and this one keeps TMA's 16-byte rule.  Cached: the wrapper's host time
+    is part of every decode step."""
+    st = list(stride[:3])
+    if shape[2] == 1:
+        st[2] = shape[3]
+    if shape[1] == 1:
+        st[1] = shape[2] * st[2]
+    if shape[0] == 1:
+        st[0] = shape[1] * st[1]
+    return tuple(st), all(x * esize % 16 == 0 for x in st)
+
+
+def _check_err(err: int, what: str) -> None:
+    if err >= 10000:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA map "
+                           f"(CUresult {err - 10000})")
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def flash_fwd_combine(acc, m, l, dtype=torch.float32):
+    """Merge split partials ``(acc, m, l)`` (the layout of
+    ``flash_attention_fwd_split_plain``) into ``(o, lse)``.  CPU tensors
+    take ``merge_partials_plain``; CUDA tensors launch the combine kernel of
+    ``csrc/flash_fwd.cu`` or raise."""
+    if acc.device.type == "cpu":
+        return merge_partials_plain(acc, m, l, dtype)
+    if acc.device.type != "cuda":
+        raise ValueError(f"flash_fwd_combine runs on CPU or CUDA tensors, "
+                         f"not {acc.device.type}")
+    b, h, splits, s_q, d = acc.shape
+    if dtype not in _KERNEL_DTYPES or d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_fwd_combine takes float32 or bfloat16 and "
+                         f"D in {KERNEL_HEAD_DIMS}, not {dtype}, D={d}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != acc.device for t in (acc, m, l)):
+        raise ValueError("flash_fwd_combine takes contiguous f32 partials "
+                         "on one device")
+    if m.shape != acc.shape[:4] or l.shape != acc.shape[:4]:
+        raise ValueError(f"partials disagree: acc {tuple(acc.shape)}, m "
+                         f"{tuple(m.shape)}, l {tuple(l.shape)}")
+    o = torch.empty((b, h, s_q, d), dtype=dtype, device=acc.device)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=acc.device)
+    with torch.cuda.device(acc.device):
+        _launch_combine(acc.data_ptr(), m.data_ptr(), l.data_ptr(), splits,
+                        o, lse,
+                        torch.cuda.current_stream(acc.device).cuda_stream)
+    return o, lse
+
+
+def _launch_combine(acc_ptr: int, m_ptr: int, l_ptr: int, splits: int, o,
+                    lse, stream) -> None:
+    """Launch the combine kernel on f32 partials (B,H,splits,Sq,D) and
+    (B,H,splits,Sq) x 2 at the given addresses, into o and lse."""
+    b, h, s_q, d = o.shape
+    _, comb = _kernel()
+    err = comb(acc_ptr, m_ptr, l_ptr, o.data_ptr(), lse.data_ptr(),
+               _KERNEL_DTYPES[o.dtype], b * h, s_q, d, splits, stream)
+    _check_err(err, "flash_fwd_combine kernel")
+    KERNEL_LAUNCHES["flash_fwd_combine"] += 1
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, q_offset: int,
                     k_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global LAST_PLAN
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     for name, t in (("k", k), ("v", v)):
@@ -147,6 +370,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, q_offset: int,
                              f"q {tuple(q.shape)} (B, H, S, D)")
     if k.shape[2] != v.shape[2]:
         raise ValueError("k and v differ in sequence length")
+    if s_k == 0:
+        raise ValueError("flash_fwd kernel needs at least one key")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash_fwd kernel takes float32 or bfloat16, "
                          f"not {q.dtype}")
@@ -161,18 +386,55 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, q_offset: int,
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     if s_q == 0:
         return o, lse
-    fn = _kernel()
+    if s_q <= DECODE_MAX_SQ:
+        variant, block_q = "decode", DECODE_MAX_SQ
+    elif q.dtype == torch.bfloat16 and d in (64, 128):
+        variant, block_q = "wgmma", KERNEL_BLOCK_Q
+    else:
+        variant, block_q = "simt", KERNEL_BLOCK_Q
+    # K/V rows arrive by 16-byte cp.async or TMA copies, and the tensor-core
+    # path loads Q by TMA too: an input whose base or a stride is not a
+    # 16-byte multiple is copied to fresh contiguous memory first.
+    copied, inputs, strides = [], [], []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        st, ok = _kernel_strides(t.shape, t.stride(), t.element_size())
+        if (name != "q" or variant == "wgmma") and not (
+                ok and t.data_ptr() % 16 == 0):
+            t = torch.empty_like(
+                t, memory_format=torch.contiguous_format).copy_(t)
+            st, _ = _kernel_strides(t.shape, t.stride(), t.element_size())
+            copied.append(name)
+        inputs.append(t)
+        strides += st
+    q, k, v = inputs
+    plan = split_plan(b, h, s_q, s_k, causal, q_offset, k_offset, block_q,
+                      KERNEL_BLOCK_K, _sm_count(q.device))
+    splits = plan.num_splits
+    LAST_PLAN = {"variant": variant, "num_splits": splits,
+                 "grid": [-(-s_q // block_q), b * h, splits],
+                 "copied": copied}
+    part = (None, None, None)
+    if splits > 1:
+        # one f32 workspace: acc (B,H,splits,Sq,D), then m, then l
+        # (B,H,splits,Sq) each.  Dropping it on return is safe: PyTorch's
+        # caching allocator hands the block out again only to work queued
+        # on this stream after the combine kernel.
+        n = b * h * splits * s_q
+        ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+        base = ws.data_ptr()
+        part = (base, base + 4 * n * d, base + 4 * n * (d + 1))
+    fn, _ = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, s_q, s_k, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 float(sm_scale), int(causal), int(q_offset), int(k_offset),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
-                           f"{err}")
-    KERNEL_LAUNCHES["flash_fwd"] += 1
+                 lse.data_ptr(), *part,
+                 _KERNEL_DTYPES[q.dtype], _VARIANTS[variant], splits, b, h,
+                 s_q, s_k, d, *strides, float(sm_scale), int(causal),
+                 int(q_offset), int(k_offset), stream)
+        _check_err(err, "flash_fwd kernel")
+        KERNEL_LAUNCHES["flash_fwd"] += 1
+        if splits > 1:
+            _launch_combine(*part, splits, o, lse, stream)
     return o, lse
 
 
@@ -182,9 +444,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         block_k: int = DEFAULT_BLOCK_K
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward; returns ``(o, lse)``.  CPU tensors take the
-    plain version; CUDA tensors launch the hand-written kernel (64 x 64
-    tiles, so ``block_q``/``block_k`` shape only the plain version) or
-    raise."""
+    plain version; CUDA tensors launch the hand-written kernels (64-key
+    tiles, split-KV as ``split_plan`` says, so ``block_q``/``block_k`` shape
+    only the plain version) or raise."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":

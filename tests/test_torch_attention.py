@@ -2,9 +2,11 @@
 
 The same numpy inputs go through the JAX package's flash attention (its
 Pallas kernel in interpret mode, as tests/test_ops.py runs it) and the
-port's flash forward (its plain version: the tensors lie on the CPU), at the
-JAX suite's forward bar of 2e-3.  The CUDA kernel itself is checked against
-the plain version on the card by chip_smoke.py.
+port's flash forward (its plain versions: the tensors lie on the CPU), at
+the JAX suite's forward bar of 2e-3: the blockwise forward, and the split-KV
+forward with its merge, against ``_online_merge``.  The CUDA kernels
+themselves are checked against the plain versions on the card by
+chip_smoke.py.
 """
 
 import numpy as np
@@ -132,4 +134,124 @@ def test_importing_the_port_builds_nothing():
     import ray_tpu_torch.ops.attention as mod
 
     assert mod._fn is None or torch.cuda.is_available()
-    assert set(tattn.KERNEL_LAUNCHES) == {"flash_fwd"}
+    assert set(tattn.KERNEL_LAUNCHES) == {"flash_fwd", "flash_fwd_combine"}
+
+
+# ------------------------------------------------------------ split-KV
+def _jax_flash_with_lse(q, k, v, **kw):
+    """The JAX package's forward, Pallas in interpret mode: (o, lse)."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = jattn._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kw.get("causal", True),
+        scale, kw.get("q_offset", 0), kw.get("k_offset", 0), 64, 64,
+        interpret=True)
+    return np.asarray(out), np.asarray(lse)
+
+
+def _split_then_merge(q, k, v, num_splits, **kw):
+    part = tattn.flash_attention_fwd_split_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        num_splits=num_splits, **kw)
+    o, lse = tattn.merge_partials_plain(*part)
+    return o.numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("name,shape,kw,splits", [
+    ("decode", dict(b=2, h=2, s=1, s_k=300, d=32),
+     dict(causal=True, q_offset=299), 5),
+    ("chunk_at_offset", dict(b=1, h=2, s=48, s_k=176, d=16),
+     dict(causal=True, q_offset=128), 3),
+    ("noncausal_ragged_sk", dict(b=1, h=2, s=70, s_k=150, d=16),
+     dict(causal=False), 2),
+    ("more_splits_than_tiles", dict(b=1, h=2, s=128, d=16),
+     dict(causal=True), 4),
+])
+def test_split_plain_matches_jax_flash(name, shape, kw, splits):
+    q, k, v = _qkv(**shape)
+    want_o, want_lse = _jax_flash_with_lse(q, k, v, **kw)
+    got_o, got_lse = _split_then_merge(q, k, v, splits, **kw)
+    np.testing.assert_allclose(got_o, want_o, **TOL)
+    np.testing.assert_allclose(got_lse, want_lse, **TOL)
+
+
+def test_split_plain_fully_masked_rows_in_every_split():
+    q, k, v = _qkv(b=1, h=2, s=64, s_k=200, d=16)
+    part = tattn.flash_attention_fwd_split_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=True,
+        k_offset=1000, num_splits=3)
+    acc, m, l = (t.numpy() for t in part)
+    np.testing.assert_array_equal(m, np.float32(-1e30))
+    np.testing.assert_array_equal(l, 0.0)
+    np.testing.assert_array_equal(acc, 0.0)
+    got_o, got_lse = _split_then_merge(q, k, v, 3, causal=True,
+                                       k_offset=1000)
+    want_o, want_lse = _jax_flash_with_lse(q, k, v, causal=True,
+                                           k_offset=1000)
+    np.testing.assert_array_equal(got_o, 0.0)
+    np.testing.assert_array_equal(got_lse, np.float32(-1e30))
+    np.testing.assert_array_equal(want_o, 0.0)
+    np.testing.assert_array_equal(want_lse, np.float32(-1e30))
+
+
+@pytest.mark.parametrize("splits,dead", [(1, ()), (3, (1,)), (7, (0, 4, 6)),
+                                         (4, (0, 1, 2, 3))])
+def test_merge_partials_matches_jax_online_merge(splits, dead):
+    rng = np.random.default_rng(splits)
+    b, h, s_q, d = 2, 3, 5, 16
+    m = rng.normal(0.0, 3.0, (b, h, splits, s_q)).astype(np.float32)
+    l = rng.uniform(0.5, 4.0, (b, h, splits, s_q)).astype(np.float32)
+    acc = rng.standard_normal((b, h, splits, s_q, d)).astype(np.float32)
+    for s in dead:  # an empty or fully masked split
+        m[:, :, s], l[:, :, s], acc[:, :, s] = -1e30, 0.0, 0.0
+    jm, jl, jacc = (jnp.asarray(m[:, :, 0]), jnp.asarray(l[:, :, 0]),
+                    jnp.asarray(acc[:, :, 0]))
+    for s in range(1, splits):
+        jm, jl, jacc = jattn._online_merge(
+            jm, jl, jacc, jnp.asarray(m[:, :, s]), jnp.asarray(l[:, :, s]),
+            jnp.asarray(acc[:, :, s]))
+    # the Pallas kernel's epilogue (attention.py:126-128)
+    l_safe = jnp.where(jl == 0.0, 1.0, jl)
+    want_o = np.asarray(jacc / l_safe[..., None])
+    want_lse = np.asarray(jnp.where(jl == 0.0, -1e30, jm + jnp.log(l_safe)))
+    got_o, got_lse = tattn.merge_partials_plain(
+        torch.from_numpy(acc), torch.from_numpy(m), torch.from_numpy(l))
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5,
+                               rtol=1e-5)
+    # the wrapper takes the plain version for tensors on the CPU
+    wrapped = tattn.flash_fwd_combine(torch.from_numpy(acc),
+                                      torch.from_numpy(m),
+                                      torch.from_numpy(l))
+    np.testing.assert_array_equal(wrapped[0].numpy(), got_o.numpy())
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,causal,qo,ko,block_q", [
+    (1, 12, 1, 600, True, 599, 0, 16),      # serving decode
+    (8, 12, 1, 1000, True, 999, 0, 16),     # batched decode
+    (1, 12, 256, 512, True, 256, 0, 64),    # serving prefill chunk
+    (1, 12, 512, 512, True, 0, 0, 64),      # GPT-2 prefill
+    (2, 12, 200, 200, False, 0, 0, 64),     # non-causal, ragged
+    (1, 12, 64, 64, True, 0, 1000, 64),     # nothing visible
+    (8, 12, 512, 512, True, 0, 0, 64),      # 768 CTAs: fills the card
+])
+def test_split_plan_covers_each_visible_tile_once(B, H, Sq, Sk, causal, qo,
+                                                  ko, block_q):
+    plan = tattn.split_plan(B, H, Sq, Sk, causal, qo, ko, block_q, 64, 132)
+    n_q = -(-Sq // block_q)
+    assert len(plan.runs) == n_q
+    if B * H * n_q >= 132:
+        assert plan.num_splits == 1
+    for iq, runs in enumerate(plan.runs):
+        assert len(runs) == plan.num_splits
+        rows = np.arange(iq * block_q, min((iq + 1) * block_q, Sq)) + qo
+        keys = np.arange(Sk) + ko
+        visible = (keys[None, :] <= rows[:, None]).any(axis=0) if causal \
+            else np.ones(Sk, bool)
+        n_vis = -(-(int(np.nonzero(visible)[0].max()) + 1) // 64) \
+            if visible.any() else 0
+        covered = [t for start, count in runs
+                   for t in range(start, start + count)]
+        # every visible tile exactly once, in order, none past the range
+        assert covered == list(range(n_vis))
+    assert plan == tattn.split_plan(B, H, Sq, Sk, causal, qo, ko, block_q,
+                                    64, 132)
