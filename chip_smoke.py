@@ -6,23 +6,36 @@
 Phases, each fatal on failure:
   1. device: the card's name and power limit, CUDA/torch versions; TF32 off
      so that f32 comparisons are f32;
-  2. build: every kernel in ray_tpu_torch/csrc, one nvcc each, in parallel,
-     with each kernel's registers and spills from ptxas; then the SASS of
-     the bf16 tensor-core kernel must hold wgmma (HGMMA) and TMA loads
-     (UTMALDG), counted with cuobjdump;
-  3. kernels: each kernel against its plain PyTorch version on the card at
+  2. build: every kernel source in ray_tpu_torch/csrc (flash_fwd.cu,
+     flash_bwd.cu), one nvcc each, in parallel, with each kernel's registers
+     and spills from ptxas; then the SASS of the bf16 tensor-core kernel
+     must hold wgmma (HGMMA) and TMA loads (UTMALDG), counted with cuobjdump;
+  3. forward kernels: each against its plain PyTorch version on the card at
      the shapes the serving path gives it (and the JAX suite's cases), with
      the plan it chose (variant, KV splits), times beside the plain version,
      one library call and the card's bound; then the split-KV combine
      kernel against its plain version at the serving decode's partials;
+  3b. backward kernels (delta, dK/dV, dQ) against flash_attention_bwd_plain
+     on the forward kernel's o and lse, at the training path's shape and six
+     more cases: each result repeated bit for bit, device time in total and
+     per kernel, the plain version, the backward of
+     scaled_dot_product_attention as the library yardstick, and the bound;
   4. model: full-width GPT-2-small logits, flash against reference
      attention, in f32 and at the model's default bf16; then the serving
      runner's prefill against the model;
-  5. serving (the main path): EngineCore at GPT-2-small width serves 8
+  5. serving (a main path): EngineCore at GPT-2-small width serves 8
      greedy requests with chunked prefill; every kernel launch counter is
-     set to 0 just before and read just after, and must be > 0 (flash_fwd
-     once per attention call, flash_fwd_combine for the split launches);
-  6. the kernels line, then the card line, then the result line.
+     set to 0 just before and read just after, and the forward kernels must
+     have run (flash_fwd once per attention call, flash_fwd_combine for the
+     split launches);
+  6. training (a main path): ShardedPretrainer takes 10 steps of
+     GPT-2-small (bf16, flash, no remat) at batch 16 x 1024 on one seeded
+     batch; losses finite and falling; every counter set to 0 just before
+     and read just after (flash_fwd and each backward kernel 12 per step,
+     no combine); step time, tokens/s, peak memory, MFU, a traced step;
+     then loss parity against reference attention in bf16 (3 steps at
+     batch 4) and in f32 (one step, loss and gradient norm);
+  7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
 """
@@ -79,7 +92,8 @@ def _time_ms(fn, iters: int = 20) -> float:
 def _device_ms(fn, iters: int = 20, part=None):
     """Device time per call: the summed time of every kernel ``fn`` runs on
     the card, traced by torch.profiler (CUPTI), over ``iters`` calls.  With
-    ``part``, also the share of the kernels whose name holds ``part``."""
+    ``part``, also the share of the kernels whose name holds ``part`` (a
+    name, or a tuple of names for a dict of shares)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -101,8 +115,13 @@ def _device_ms(fn, iters: int = 20, part=None):
         raise RuntimeError("the profiler traced no device time")
     if part is None:
         return us / 1e3 / iters
-    sub = sum(e.self_device_time_total for e in events if part in e.key)
-    return us / 1e3 / iters, sub / 1e3 / iters
+
+    def share(name):
+        return sum(e.self_device_time_total for e in events
+                   if name in e.key) / 1e3 / iters
+    if isinstance(part, tuple):
+        return us / 1e3 / iters, {name: share(name) for name in part}
+    return us / 1e3 / iters, share(part)
 
 
 def _check_close(name, got, want, tol):
@@ -298,6 +317,165 @@ def combine_case(card):
             "library_ms": None}
 
 
+# ------------------------------------------------------------ phase 3b
+BWD_CASES = [
+    # name, dtype, B, H, Sq, Sk, D, causal, q_offset, k_offset
+    ("train_bf16", torch.bfloat16, 16, 12, 1024, 1024, 64, True, 0, 0),
+    ("train_f32", torch.float32, 4, 12, 1024, 1024, 64, True, 0, 0),
+    ("unaligned_noncausal_f32", torch.float32, 2, 12, 200, 200, 64, False,
+     0, 0),
+    ("chunk_offset_f32", torch.float32, 1, 12, 128, 512, 64, True, 384, 0),
+    ("d128_causal_bf16", torch.bfloat16, 1, 8, 1024, 1024, 128, True, 0, 0),
+    ("fully_masked_f32", torch.float32, 1, 12, 64, 64, 64, True, 0, 1000),
+    # q/k/v as views of one (B, S, 3E) tensor and g as the (B, H, S, D)
+    # view of a (B, S, H, D) tensor: GPT2LMModel's training layout
+    ("fused_qkv_bf16", torch.bfloat16, 4, 12, 1024, 1024, 64, True, 0, 0),
+]
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+# the training path's own shape
+TRAIN_CASE = "train_bf16"
+
+
+def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
+    """Least device time (ms, and what bounds it) of the whole backward and
+    of each kernel's function: every input read once, every output written
+    once; 2*D flops per visible pair for each of S, dP, dV, dK and dQ that
+    the function needs (the two-kernel design's recomputed S and dP are not
+    counted)."""
+    q_bytes, k_bytes = B * H * Sq * D * esize, B * H * Sk * D * esize
+    row_bytes = 4 * B * H * Sq  # lse or delta
+    work = {  # bytes, flops
+        "op": (3 * q_bytes + 2 * k_bytes + row_bytes + q_bytes + 2 * k_bytes,
+               10 * D * pairs),
+        "flash_bwd_delta": (2 * q_bytes + row_bytes, 2 * D * B * H * Sq),
+        "flash_bwd_dkdv": (2 * q_bytes + 2 * k_bytes + 2 * row_bytes
+                           + 2 * k_bytes, 8 * D * pairs),
+        "flash_bwd_dq": (2 * q_bytes + 2 * k_bytes + 2 * row_bytes + q_bytes,
+                         6 * D * pairs),
+    }
+    out = {}
+    for key, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        out[key] = (max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def backward_cases(card):
+    """The three backward kernels against ``flash_attention_bwd_plain``
+    (and the delta kernel against ``flash_bwd_delta_plain``) on the forward
+    kernel's o and lse."""
+    from ray_tpu_torch.ops import attention as tattn
+    from ray_tpu_torch.ops.attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_bwd_delta,
+        flash_bwd_delta_plain,
+    )
+
+    bw, bf16_peak, f32_peak = _peaks(card)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for (name, dtype, B, H, Sq, Sk, D, causal, qo, ko) in BWD_CASES:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+
+        if name == "fused_qkv_bf16":
+            qkv = randn(B, Sq, 3 * H * D)
+            q, k, v = (t.reshape(B, Sq, H, D).transpose(1, 2)
+                       for t in qkv.split(H * D, dim=-1))
+            g = randn(B, Sq, H, D).transpose(1, 2)
+        else:
+            q, k, v = (randn(B, H, Sq, D), randn(B, H, Sk, D),
+                       randn(B, H, Sk, D))
+            g = randn(B, H, Sq, D)
+        kw = dict(causal=causal, q_offset=qo, k_offset=ko)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, g, **kw)
+        delta = flash_bwd_delta(o, g)
+        torch.cuda.synchronize()
+        plan = dict(tattn.LAST_BWD_PLAN)
+        again = flash_attention_bwd(q, k, v, o, lse, g, **kw)
+        delta_again = flash_bwd_delta(o, g)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(delta, delta_again)):
+            raise AssertionError(f"{name}: a second call gave other bits")
+        want = flash_attention_bwd_plain(q, k, v, o, lse, g, **kw)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        errs = {key: _check_close(f"{name} {key}", a, b, tol)
+                for key, a, b in zip(("dq", "dk", "dv"), got, want)}
+        errs["delta"] = _check_close(f"{name} delta", delta,
+                                     flash_bwd_delta_plain(o, g), F32_TOL)
+        if name == "fully_masked_f32":
+            if not all(bool((t == 0).all()) for t in got):
+                raise AssertionError("fully masked rows must give dq, dk, "
+                                     "dv == 0")
+        if plan["copied"]:
+            raise AssertionError(f"{name}: the backward copied "
+                                 f"{plan['copied']}; strided inputs with a "
+                                 f"contiguous head dim go in as they are")
+
+        # the library yardstick: the backward of scaled_dot_product_attention
+        # with the same mask, on inputs that require grad
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        if causal and qo == ko == 0 and Sq == Sk:
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                     is_causal=True)
+        else:
+            mask = None
+            if causal:
+                mask = (torch.arange(Sq, device="cuda")[:, None] + qo
+                        >= torch.arange(Sk, device="cuda")[None, :] + ko)
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                     attn_mask=mask)
+        fns = {
+            "": lambda: flash_attention_bwd(q, k, v, o, lse, g, **kw),
+            "plain_": lambda: flash_attention_bwd_plain(q, k, v, o, lse, g,
+                                                        **kw),
+            "library_": lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), g, retain_graph=True),
+            "delta_plain_": lambda: flash_bwd_delta_plain(o, g),
+        }
+        times = {}
+        for key, fn in fns.items():
+            if key:
+                times[key + "ms"] = _device_ms(fn, iters=5 if key ==
+                                               "plain_" else 20)
+            else:
+                times["ms"], times["kernel_ms"] = _device_ms(
+                    fn, part=BWD_KERNELS)
+        pairs = B * H * _visible_pairs(Sq, Sk, causal, qo, ko)
+        peak = f32_peak if dtype == torch.float32 else bf16_peak
+        bounds = _bwd_bounds(B, H, Sq, Sk, D, q.element_size(), pairs, peak,
+                             bw)
+        rows.append({
+            "case": name, "shape": [B, H, Sq, Sk, D],
+            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+            "q_offset": qo, "k_offset": ko, "plan": plan,
+            "max_abs_err": errs, "tol": list(tol), **times,
+            "bound_ms": bounds["op"][0], "bound_by": bounds["op"][1],
+            "kernel_bounds": {k: list(v) for k, v in bounds.items()
+                              if k != "op"},
+        })
+        kms = times["kernel_ms"]
+        print(f"[kernel] flash_bwd {name}: grids dkdv={plan['grid_dkdv']} "
+              f"dq={plan['grid_dq']} copied={plan['copied']}; max_abs_err "
+              + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+              + f" (atol={tol[0]}, rtol={tol[1]}); repeat bitwise; "
+              f"ms={times['ms']:.4f} (delta {kms['flash_bwd_delta']:.4f}, "
+              f"dkdv {kms['flash_bwd_dkdv']:.4f}, dq "
+              f"{kms['flash_bwd_dq']:.4f}) plain_ms={times['plain_ms']:.4f} "
+              f"library_ms={times['library_ms']:.4f} bound_ms="
+              f"{bounds['op'][0]:.5f} ({bounds['op'][1]}); per kernel bound "
+              + " ".join(f"{k[10:]} {v[0]:.5f} ({v[1]})"
+                         for k, v in bounds.items() if k != "op"),
+              flush=True)
+    return rows
+
+
 # ------------------------------------------------------------- phase 2
 def _cuobjdump() -> str:
     found = shutil.which("cuobjdump")
@@ -476,10 +654,9 @@ def serve(card_label):
     if not 0 < launches["flash_fwd_combine"] <= calls:
         raise AssertionError(f"flash_fwd_combine launches {launches}: the "
                              f"split-KV path did not run on the main path")
-    for key, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {key} was not launched by the "
-                                 f"serving path")
+    if any(launches[key] for key in BWD_KERNELS):
+        raise AssertionError(f"the serving path launched backward kernels: "
+                             f"{launches}")
     _, _, _, again = run(trace=True)
     if [r["tokens"] for r in results] != [r["tokens"] for r in again]:
         raise AssertionError("a second identical run gave other tokens")
@@ -497,6 +674,153 @@ def serve(card_label):
     print("[serve] deterministic: second run gave identical tokens; "
           "cache leak check passed", flush=True)
     return launches
+
+
+# ------------------------------------------------------------- phase 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
+PARITY_BATCH, PARITY_STEPS = 4, 3
+# bf16 parity bar, relative on the loss: half a bf16 ulp (2^-9).  Flash and
+# reference attention both run every GEMM in bf16 and round their outputs
+# to bf16; the loss is a mean over 4096 tokens of an f32 log-softmax, so
+# the two runs may differ by bf16 rounding inside attention, which averages
+# out over the tokens, but an error of the kernels' own (a wrong mask, a
+# wrong row, a lost scale) moves a loss near ln(50257) by far more
+BF16_LOSS_RTOL = 2.0 ** -9
+F32_LOSS_RTOL, F32_NORM_RTOL = 1e-5, 1e-4
+
+
+def _train_batch(cfg, batch, seed):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, (batch, TRAIN_SEQ))
+            for k in ("input_ids", "targets")}
+
+
+def train(card, card_label):
+    """The training path: ShardedPretrainer on GPT-2-small (bf16, flash,
+    no remat), as bench.py runs it on one device."""
+    import dataclasses
+
+    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+    from ray_tpu_torch.ops.attention import KERNEL_LAUNCHES
+
+    cfg = GPT2Config(remat=False)
+    trainer = ShardedPretrainer(cfg)
+    batch = _train_batch(cfg, TRAIN_BATCH, 0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[key] = 0
+    losses, t_start = [], None
+    for i in range(TRAIN_STEPS):
+        if i == 2:  # steps 0 and 1 warm cuBLAS and the allocator
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t_start) / (TRAIN_STEPS - 2)
+    launches = dict(KERNEL_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [t.item() for t in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    calls = cfg.n_layer * TRAIN_STEPS
+    want = {"flash_fwd": calls, "flash_fwd_combine": 0,
+            **{key: calls for key in BWD_KERNELS}}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{want}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bf16_peak = _peaks(card)[1]
+    mfu = 6 * n_params * tokens / step_s / bf16_peak
+    D = cfg.n_embd // cfg.n_head
+    attn_flops = (cfg.n_layer * TRAIN_BATCH * cfg.n_head * 14 * D
+                  * _visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, 0, 0))
+    print(f"[train] GPT-2-small ({n_params} params, bf16, flash, remat off)"
+          f", batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps: "
+          f"losses {[round(x, 4) for x in losses]}; step_ms="
+          f"{step_s * 1e3:.3f} tokens_per_s={tokens / step_s:.1f} "
+          f"peak_memory_gb={peak_gb:.3f} mfu={mfu:.4f} (6*N FLOPs a token "
+          f"over {bf16_peak / 1e12:.0f} TFLOP/s, attention left out); "
+          f"attention FLOPs a step {attn_flops / 1e9:.2f} G (4*D forward + "
+          f"10*D backward a visible pair, = "
+          f"{attn_flops / step_s / bf16_peak:.4f} of peak on its own); "
+          f"launches {launches} on {card_label}", flush=True)
+
+    # one traced step: where the device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(kernels.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler traced no device time in the step")
+    bwd = {k: t for k, t in kernels.items() if "flash_bwd" in k}
+    fwd = sum(t for k, t in kernels.items() if "flash_fwd" in k)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    trace = {"wall_ms": wall * 1e3, "busy_ms": busy,
+             "idle_share": 1 - busy / (wall * 1e3),
+             "flash_bwd_ms": sum(bwd.values()),
+             "flash_bwd_share": sum(bwd.values()) / busy,
+             "flash_fwd_ms": fwd,
+             "top": [[k[:80], t] for k, t in top]}
+    print(f"[train] traced step: wall_ms={trace['wall_ms']:.3f} "
+          f"device_busy_ms={busy:.3f} (idle share {trace['idle_share']:.4f})"
+          f"; flash backward kernels {trace['flash_bwd_ms']:.3f} ms "
+          f"({trace['flash_bwd_share']:.4f} of busy: "
+          + ", ".join(f"{k[:40]} {t:.3f}" for k, t in bwd.items())
+          + f"), flash_fwd {fwd:.3f} ms; top kernels: "
+          + "; ".join(f"{k[:70]} {t:.3f} ms" for k, t in top), flush=True)
+    del trainer
+
+    # parity against reference attention from the same init and batches
+    batches = [_train_batch(cfg, PARITY_BATCH, 1 + i)
+               for i in range(PARITY_STEPS)]
+    par = {}
+    for impl in ("flash", "reference"):
+        t = ShardedPretrainer(dataclasses.replace(cfg, attention_impl=impl))
+        par[impl] = [t.step(b).item() for b in batches]
+        del t
+    rel = max(abs(a - b) / abs(b) for a, b in zip(par["flash"],
+                                                   par["reference"]))
+    if rel > BF16_LOSS_RTOL:
+        raise AssertionError(f"bf16 losses flash {par['flash']} vs "
+                             f"reference {par['reference']}: rel {rel:.3e} "
+                             f"> {BF16_LOSS_RTOL:.3e}")
+    print(f"[train] bf16 parity, batch {PARITY_BATCH}, {PARITY_STEPS} steps:"
+          f" flash {par['flash']} reference {par['reference']}, max rel "
+          f"{rel:.3e} (bar {BF16_LOSS_RTOL:.3e})", flush=True)
+    f32 = {}
+    for impl in ("flash", "reference"):
+        t = ShardedPretrainer(dataclasses.replace(
+            cfg, attention_impl=impl, dtype=torch.float32))
+        loss = t.step(batches[0]).item()
+        f32[impl] = (loss, t.opt.last_grad_norm.item())
+        del t
+    (lf, nf), (lr_, nr) = f32["flash"], f32["reference"]
+    if not (abs(lf - lr_) <= F32_LOSS_RTOL * abs(lr_)
+            and abs(nf - nr) <= F32_NORM_RTOL * abs(nr)):
+        raise AssertionError(f"f32 step flash (loss {lf}, grad norm {nf}) "
+                             f"vs reference ({lr_}, {nr})")
+    print(f"[train] f32 parity, one step at batch {PARITY_BATCH}, TF32 off: "
+          f"loss flash {lf:.8f} reference {lr_:.8f} (rel "
+          f"{abs(lf - lr_) / abs(lr_):.3e}, bar {F32_LOSS_RTOL}); grad norm "
+          f"flash {nf:.8f} reference {nr:.8f} (rel "
+          f"{abs(nf - nr) / abs(nr):.3e}, bar {F32_NORM_RTOL})", flush=True)
+    return launches, {"step_ms": step_s * 1e3,
+                      "tokens_per_s": tokens / step_s,
+                      "peak_memory_gb": peak_gb, "mfu": mfu,
+                      "attention_gflop_per_step": attn_flops / 1e9,
+                      "losses": losses, "trace": trace,
+                      "parity_bf16": par, "parity_f32": f32}
 
 
 def main() -> int:
@@ -535,20 +859,27 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = attention_cases(card)
     combine_row = combine_case(card)
+    # 3b. the backward kernels
+    bwd_rows = backward_cases(card)
 
     # 4. model at full width
     model_forward(random_flax_params(GPT2Config.small(), seed=0))
 
-    # 5. the main path
-    launches = serve(f"{card} ({smi})")
+    # 5. and 6. the main paths, each with its counters set to 0 just before
+    serve_launches = serve(f"{card} ({smi})")
+    train_launches, training = train(card, f"{card} ({smi})")
 
-    # 6. kernels line, card line, result line
+    # 7. kernels line, card line, result line
+    def launches(key):
+        return {"launches": serve_launches[key] + train_launches[key],
+                "launches_by_path": {"serve": serve_launches[key],
+                                     "train": train_launches[key]}}
+
     main_row = next(r for r in rows if r["case"] == MAIN_PATH_CASE)
     kernel = {
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:66",
-        "launches": launches["flash_fwd"],
+        "replaces": "ray_tpu/ops/attention.py:66", **launches("flash_fwd"),
         **{key: main_row[key] for key in
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
@@ -558,14 +889,39 @@ def main() -> int:
         "name": "flash_fwd_combine", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:126",
-        "launches": launches["flash_fwd_combine"],
+        **launches("flash_fwd_combine"),
         **{key: combine_row[key] for key in
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "shape": combine_row["case"], "splits": combine_row["splits"],
         "pass": True,
     }
-    print(json.dumps({"kernels": [kernel, combine]}))
+    train_row = next(r for r in bwd_rows if r["case"] == TRAIN_CASE)
+    errs = train_row["max_abs_err"]
+    backward = []
+    for name, err in (("flash_bwd_delta", errs["delta"]),
+                      ("flash_bwd_dkdv", max(errs["dk"], errs["dv"])),
+                      ("flash_bwd_dq", errs["dq"])):
+        bound, bound_by = train_row["kernel_bounds"][name]
+        delta = name == "flash_bwd_delta"
+        backward.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "ray_tpu/ops/attention.py:189", **launches(name),
+            "max_abs_err": err, "ms": train_row["kernel_ms"][name],
+            # the plain version of delta on its own; dK/dV and dQ have one
+            # plain version together, flash_attention_bwd_plain
+            "plain_ms": train_row["delta_plain_ms" if delta else "plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by,
+            # dq, dk, dv together: the backward of scaled_dot_product_attention
+            "library_ms": None if delta else train_row["library_ms"],
+            "shape": TRAIN_CASE, "pass": True,
+        })
+    # the whole backward op, and every case of phase 3b, on the last entry
+    backward[-1].update(op_ms=train_row["ms"],
+                        op_bound_ms=train_row["bound_ms"], cases=bwd_rows)
+    print("[train] result " + json.dumps(training), flush=True)
+    print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

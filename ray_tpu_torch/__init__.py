@@ -6,9 +6,10 @@ sits where its counterpart does.  Kernels written by hand for Hopper live in
 ``csrc/`` and are compiled with ``nvcc`` at first use (``_native/build.py``);
 importing the package builds and loads nothing.
 
-This slice serves GPT-2 through ``llm.EngineCore`` with a hand-written CUDA
-flash-attention forward kernel (``ops/attention.py``).  Entry points run on
-the CUDA card unless the caller passes ``device="cpu"``.
+It serves GPT-2 through ``llm.EngineCore`` and pretrains it through
+``models.pretrain.ShardedPretrainer`` on one card, with hand-written CUDA
+flash-attention kernels, forward and backward (``ops/attention.py``).  Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from ray_tpu_torch._private.device import resolve_device

@@ -1,21 +1,29 @@
-"""GPT-2 in PyTorch, inference only: the port of ``ray_tpu/models/gpt2.py``.
+"""GPT-2 in PyTorch: the port of ``ray_tpu/models/gpt2.py``.
 
 Same structure and parameter names as the flax model (fused QKV, pre-LN
 blocks, tanh-GELU MLP, untied ``lm_head`` without bias), so a flax param tree
 loads through ``models/convert.params_from_flax``.  Parameters are f32 and
-compute runs in ``config.dtype`` (bf16 by default), as flax's ``dtype=``
-does.  Attention is the hand-written flash kernel (``attention_impl="flash"``)
-or the naive reference.  Ring attention and MoE blocks wait for later slices;
-training (remat, the loss) waits for the training slice.
+trainable, and compute runs in ``config.dtype`` (bf16 by default), as flax's
+``dtype=`` does.  Attention is the hand-written flash kernel forward and
+backward (``attention_impl="flash"``) or the naive reference.  ``remat``
+recomputes each block in the backward (``torch.utils.checkpoint``), and
+``lm_loss`` is the f32 next-token cross entropy.  Ring attention and MoE
+blocks wait for later slices.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -34,6 +42,11 @@ class GPT2Config:
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "flash"  # "flash" | "reference"
+    # Rematerialize each block in backward (recompute activations) when
+    # autograd records the forward.  "full" recomputes everything; "dots"
+    # keeps the outputs of the matrix products and recomputes the rest.
+    remat: bool = True
+    remat_policy: str = "full"  # "full" | "dots"
     moe_every: int = 0
 
     def __post_init__(self):
@@ -121,10 +134,15 @@ class Block(nn.Module):
         return x + self.mlp(_layernorm(self.ln_2, x, dtype))
 
 
+# what remat_policy="dots" keeps from the forward (the JAX model's policy
+# saves its dots): the outputs of every matrix product
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default]
+
+
 class GPT2LMModel(nn.Module):
-    """``GPT2LMModel(config, device=None)``: f32 parameters on ``device``
-    (the CUDA card unless ``"cpu"`` is passed), frozen — this slice serves
-    inference only."""
+    """``GPT2LMModel(config, device=None)``: f32 trainable parameters on
+    ``device`` (the CUDA card unless ``"cpu"`` is passed)."""
 
     def __init__(self, config: GPT2Config, device=None):
         super().__init__()
@@ -135,7 +153,6 @@ class GPT2LMModel(nn.Module):
         self.ln_f = nn.LayerNorm(config.n_embd, eps=LN_EPS)
         self.lm_head = nn.Linear(config.n_embd, config.vocab_size,
                                  bias=False)
-        self.requires_grad_(False)
         self.to(resolve_device(device))
 
     def forward(self, input_ids):
@@ -144,7 +161,25 @@ class GPT2LMModel(nn.Module):
         pos = torch.arange(S, device=input_ids.device)[None, :]
         x = (self.wte.weight.to(cfg.dtype)[input_ids]
              + self.wpe.weight.to(cfg.dtype)[pos])
+        if cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r} "
+                             "(expected 'full' or 'dots')")
+        remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                        _DOTS)
+                      if cfg.remat_policy == "dots" else noop_context_fn)
         for block in self.h:
-            x = block(x)
+            x = (checkpoint(block, x, use_reentrant=False,
+                            context_fn=context_fn) if remat else block(x))
         x = _layernorm(self.ln_f, x, cfg.dtype)
         return _dense(self.lm_head, x, cfg.dtype)
+
+
+def lm_loss(logits, targets, mask=None):
+    """Mean next-token cross entropy in f32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets[..., None])[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / mask.sum().clamp_min(1.0)

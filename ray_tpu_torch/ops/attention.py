@@ -17,11 +17,15 @@ Counterpart of ``ray_tpu/ops/attention.py``:
 - ``flash_attention_fwd`` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches ``csrc/flash_fwd.cu`` (which replaces
   the Pallas kernel ``_flash_fwd_kernel``, :66-129) or raises;
-- ``flash_attention`` keeps the JAX signature and the (B, H, S, D) layout.
-
-This slice serves inference only: the backward (``_flash_backward``,
-:189-247) arrives with the training slice, so ``flash_attention`` raises when
-autograd would need it.
+- ``flash_attention_bwd_plain`` mirrors ``_flash_backward`` (:189-247)
+  block by block: delta = rowsum(o·g), P recomputed from the saved lse with
+  live-row and padded-key masking, dq with the extra ``sm_scale``;
+- ``flash_attention_bwd`` is its wrapper: on CPU tensors the plain version,
+  on CUDA tensors the three kernels of ``csrc/flash_bwd.cu`` or a raise;
+- ``flash_attention`` keeps the JAX signature and the (B, H, S, D) layout,
+  and is differentiable: ``_FlashAttention`` is the ``custom_vjp`` of
+  :251-273, forward by ``flash_attention_fwd`` and backward by
+  ``flash_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -50,13 +54,19 @@ MAX_SPLITS = 32
 # Launches of each hand-written kernel, counted by its wrapper where it
 # launches and nowhere else.  A run resets a count to 0 and reads it back to
 # show which kernels its path went through.
-KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_combine": 0}
+KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_combine": 0,
+                   "flash_bwd_delta": 0, "flash_bwd_dkdv": 0,
+                   "flash_bwd_dq": 0}
 # What the last CUDA launch of the flash forward chose: variant, splits,
 # grid, and which inputs it copied to aligned memory.
 LAST_PLAN: Optional[Dict] = None
+# The same for the last CUDA backward: its grids, and the inputs it copied
+# (only those whose head dim is not contiguous; strides are taken as given).
+LAST_BWD_PLAN: Optional[Dict] = None
 
 _fn = None
 _combine_fn = None
+_bwd_fns = None
 _num_sms: Dict[int, int] = {}
 
 
@@ -255,6 +265,60 @@ def merge_partials_plain(acc, m, l, dtype=torch.float32):
     safe = torch.where(total == 0.0, 1.0, total)
     lse = torch.where(total == 0.0, NEG_INF, mx[:, :, 0] + torch.log(safe))
     return (o / safe[..., None]).to(dtype), lse
+
+
+def flash_bwd_delta_plain(o, g) -> torch.Tensor:
+    """delta = rowsum(o·g) in f32, (B, H, Sq): the backward's first pass
+    (``_flash_backward``'s ``delta``, :198)."""
+    return (o.float() * g.float()).sum(dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, g, *, causal: bool = True,
+                              sm_scale: Optional[float] = None,
+                              q_offset: int = 0, k_offset: int = 0,
+                              block_k: int = DEFAULT_BLOCK_K
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``_flash_backward`` in PyTorch, block for block: recompute P over
+    ``block_k``-key blocks from the saved ``lse`` (rows with lse = -1e30
+    give P = 0), delta = rowsum(o·g) in f32, all math in f32.  Returns
+    ``(dq, dk, dv)`` in the input dtypes."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    dev = q.device
+    qf = q.float() * sm_scale
+    gf = g.float()
+    delta = flash_bwd_delta_plain(o, g)
+    block_k = min(block_k, s_k)
+    s_k_pad = _round_up(s_k, block_k)
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, s_k_pad - s_k))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, s_k_pad - s_k))
+    q_pos = torch.arange(s_q, device=dev)[:, None] + q_offset
+    live = (lse > NEG_INF / 2)[..., None]
+    dq = torch.zeros((b, h, s_q, d), device=dev)
+    dk = torch.empty((b, h, s_k_pad, d), device=dev)
+    dv = torch.empty((b, h, s_k_pad, d), device=dev)
+    for j in range(s_k_pad // block_k):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        kj, vj = kf[:, :, blk], vf[:, :, blk]
+        s = qf @ kj.transpose(-1, -2)
+        k_idx = torch.arange(block_k, device=dev)[None, :] + j * block_k
+        valid = k_idx < s_k
+        if causal:
+            valid = valid & (q_pos >= k_idx + k_offset)
+        s = torch.where(valid, s, NEG_INF)
+        p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+        dv[:, :, blk] = p.transpose(-1, -2) @ gf
+        dp = gf @ vj.transpose(-1, -2)
+        ds = p * (dp - delta[..., None])
+        dq += ds @ kj
+        dk[:, :, blk] = ds.transpose(-1, -2) @ qf
+    # s = (q*sm_scale)·kᵀ: dq takes the extra sm_scale, dk has it through qf
+    dq = dq * sm_scale
+    return (dq.to(q.dtype), dk[:, :, :s_k].to(k.dtype),
+            dv[:, :, :s_k].to(v.dtype))
 
 
 # ============================================================ kernel
@@ -460,17 +524,184 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                            int(k_offset))
 
 
+def _bwd_kernels():
+    global _bwd_fns
+    if _bwd_fns is None:
+        from ray_tpu_torch._native import build
+
+        lib = build.load("flash_bwd")
+        delta = lib.ray_flash_bwd_delta
+        delta.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                          + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+        delta.restype = ctypes.c_int
+        fns = {"flash_bwd_delta": delta}
+        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            fn = getattr(lib, "ray_" + name)
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                           + [ctypes.c_int64] * 12
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        _bwd_fns = fns
+    return _bwd_fns
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool, sm_scale: float,
+                    q_offset: int, k_offset: int):
+    global LAST_BWD_PLAN
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    for name, t, rows in (("k", k, s_k), ("v", v, s_k), ("o", o, s_q),
+                          ("g", g, s_q)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if tuple(t.shape) != (b, h, rows, d):
+            raise ValueError(f"{name} shape {tuple(t.shape)} does not match "
+                             f"q {tuple(q.shape)} (B, H, S, D)")
+    if lse.device != q.device or tuple(lse.shape) != (b, h, s_q):
+        raise ValueError(f"lse must be (B, H, Sq) = {(b, h, s_q)} on "
+                         f"{q.device}, not {tuple(lse.shape)} on "
+                         f"{lse.device}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash_bwd kernels take float32 or bfloat16, "
+                         f"not {q.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd kernels take head dim in "
+                         f"{KERNEL_HEAD_DIMS}, not {d}")
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel grid (65535)")
+    dq = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, h, s_k, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, s_k, d), dtype=v.dtype, device=q.device)
+    if s_q == 0 or s_k == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # the kernels read any batch, head and sequence strides with a
+    # contiguous head dim; an input without one is copied first
+    copied, inputs = [], []
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)):
+        if t.stride(3) != 1:
+            t = t.contiguous()
+            copied.append(name)
+        inputs.append(t)
+    q, k, v, o, g = inputs
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        lse = lse.float().contiguous()
+        copied.append("lse")
+    LAST_BWD_PLAN = {"grid_dkdv": [-(-s_k // KERNEL_BLOCK_K), b * h],
+                     "grid_dq": [-(-s_q // KERNEL_BLOCK_Q), b * h],
+                     "copied": copied}
+    fns = _bwd_kernels()
+    dt = _KERNEL_DTYPES[q.dtype]
+    strides = [x for t in (q, k, v, g) for x in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        delta = _launch_delta(o, g, stream)
+        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            err = fns[name](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), dt, b, h, s_q, s_k, d,
+                *strides, float(sm_scale), int(causal), int(q_offset),
+                int(k_offset), stream)
+            _check_err(err, f"{name} kernel")
+            KERNEL_LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def _launch_delta(o, g, stream) -> torch.Tensor:
+    """Launch the delta kernel on o and g (same dtype, shape and device, a
+    contiguous head dim); returns delta (B, H, Sq) f32."""
+    b, h, s_q, d = o.shape
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=o.device)
+    err = _bwd_kernels()["flash_bwd_delta"](
+        o.data_ptr(), g.data_ptr(), delta.data_ptr(), _KERNEL_DTYPES[o.dtype],
+        b, h, s_q, d, *o.stride()[:3], *g.stride()[:3], stream)
+    _check_err(err, "flash_bwd_delta kernel")
+    KERNEL_LAUNCHES["flash_bwd_delta"] += 1
+    return delta
+
+
+def flash_bwd_delta(o, g) -> torch.Tensor:
+    """rowsum(o·g) in f32.  CPU tensors take ``flash_bwd_delta_plain``;
+    CUDA tensors launch the delta kernel of ``csrc/flash_bwd.cu`` (the
+    backward's first launch) or raise."""
+    if o.device.type == "cpu":
+        return flash_bwd_delta_plain(o, g)
+    if o.device.type != "cuda":
+        raise ValueError(f"flash_bwd_delta runs on CPU or CUDA tensors, "
+                         f"not {o.device.type}")
+    if (g.shape != o.shape or g.dtype != o.dtype or g.device != o.device
+            or o.dim() != 4 or o.dtype not in _KERNEL_DTYPES):
+        raise ValueError(f"flash_bwd_delta takes o and g of one (B, H, S, "
+                         f"D) shape, device and dtype (float32 or "
+                         f"bfloat16), not {tuple(o.shape)} {o.dtype} and "
+                         f"{tuple(g.shape)} {g.dtype}")
+    if o.numel() == 0:
+        return torch.zeros(o.shape[:3], device=o.device)
+    o, g = (t if t.stride(3) == 1 else t.contiguous() for t in (o, g))
+    with torch.cuda.device(o.device):
+        return _launch_delta(o, g,
+                             torch.cuda.current_stream(o.device).cuda_stream)
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
+                        sm_scale: Optional[float] = None, q_offset: int = 0,
+                        k_offset: int = 0, block_k: int = DEFAULT_BLOCK_K
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward; returns ``(dq, dk, dv)`` in the input
+    dtypes from the forward's ``o`` and ``lse`` and the output gradient
+    ``g``.  CPU tensors take the plain version; CUDA tensors launch the
+    hand-written kernels (64-key tiles, so ``block_k`` shapes only the plain
+    version) or raise."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, o, lse, g, causal=causal, sm_scale=sm_scale,
+            q_offset=q_offset, k_offset=k_offset, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on CPU or CUDA tensors, "
+                         f"not {q.device.type}")
+    return _flash_bwd_cuda(q, k, v, o, lse, g, causal, float(sm_scale),
+                           int(q_offset), int(k_offset))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_attention``'s custom_vjp (:251-273): the forward saves
+    ``(q, k, v, o, lse)``, the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset, k_offset,
+                block_q, block_k):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, q_offset=q_offset,
+                                     k_offset=k_offset, block_q=block_q,
+                                     block_k=block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale, q_offset, k_offset, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, sm_scale, q_offset, k_offset, block_k = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, g, causal=causal, sm_scale=sm_scale,
+            q_offset=q_offset, k_offset=k_offset, block_k=block_k)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: Optional[float] = None, q_offset: int = 0,
                     k_offset: int = 0, block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K):
     """Blockwise (flash) attention. q,k,v: (B, H, S, D) -> (B, H, S, D).
-    Forward only in this slice."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: the flash backward kernel "
-            "arrives with the training slice; call it under torch.no_grad()")
-    out, _ = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                                 q_offset=q_offset, k_offset=k_offset,
-                                 block_q=block_q, block_k=block_k)
-    return out
+    Differentiable: the backward is ``flash_attention_bwd``."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, float(sm_scale),
+                                 int(q_offset), int(k_offset), block_q,
+                                 block_k)

@@ -2,11 +2,13 @@
 
 The same numpy inputs go through the JAX package's flash attention (its
 Pallas kernel in interpret mode, as tests/test_ops.py runs it) and the
-port's flash forward (its plain versions: the tensors lie on the CPU), at
+port's flash attention (its plain versions: the tensors lie on the CPU), at
 the JAX suite's forward bar of 2e-3: the blockwise forward, and the split-KV
-forward with its merge, against ``_online_merge``.  The CUDA kernels
-themselves are checked against the plain versions on the card by
-chip_smoke.py.
+forward with its merge, against ``_online_merge``.  The backward: the plain
+version against ``_flash_backward`` on the same o and lse at 1e-5 (the same
+algorithm in f32), and the port's autograd gradients against ``jax.grad``
+at the JAX suite's gradient bar of 5e-3.  The CUDA kernels themselves are
+checked against the plain versions on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from ray_tpu.ops import attention as jattn
 from ray_tpu_torch.ops import attention as tattn
 
 TOL = dict(atol=2e-3, rtol=2e-3)  # tests/test_ops.py forward bar
+GRAD_TOL = dict(atol=5e-3, rtol=5e-3)  # tests/test_ops.py gradient bar
 
 
 def _qkv(b=2, h=2, s=256, d=32, s_k=None, seed=0):
@@ -98,14 +101,22 @@ def test_plain_version_matches_reference_in_bf16():
                                atol=2e-2, rtol=2e-2)
 
 
-def test_flash_attention_raises_under_autograd():
+def test_flash_attention_grads_under_autograd():
+    # the flash op's gradients (its plain backward) against autograd
+    # through the port's own mha_reference
     q, k, v = (torch.from_numpy(a).requires_grad_()
-               for a in _qkv(b=1, s=16, d=16))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tattn.flash_attention(q, k, v)
+               for a in _qkv(b=1, s=80, d=16))
+    grads = []
+    for fn in (tattn.flash_attention, tattn.mha_reference):
+        (fn(q, k, v, causal=True) ** 2).sum().backward()
+        grads.append([t.grad.clone() for t in (q, k, v)])
+        for t in (q, k, v):
+            t.grad = None
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **GRAD_TOL)
     with torch.no_grad():
         out = tattn.flash_attention(q, k, v)
-    assert out.shape == q.shape
+    assert out.shape == q.shape and not out.requires_grad
 
 
 def test_no_card_raises_instead_of_falling_back():
@@ -134,7 +145,10 @@ def test_importing_the_port_builds_nothing():
     import ray_tpu_torch.ops.attention as mod
 
     assert mod._fn is None or torch.cuda.is_available()
-    assert set(tattn.KERNEL_LAUNCHES) == {"flash_fwd", "flash_fwd_combine"}
+    assert mod._bwd_fns is None or torch.cuda.is_available()
+    assert set(tattn.KERNEL_LAUNCHES) == {
+        "flash_fwd", "flash_fwd_combine", "flash_bwd_delta",
+        "flash_bwd_dkdv", "flash_bwd_dq"}
 
 
 # ------------------------------------------------------------ split-KV
@@ -255,3 +269,65 @@ def test_split_plan_covers_each_visible_tile_once(B, H, Sq, Sk, causal, qo,
         assert covered == list(range(n_vis))
     assert plan == tattn.split_plan(B, H, Sq, Sk, causal, qo, ko, block_q,
                                     64, 132)
+
+
+# ------------------------------------------------------------- backward
+@pytest.mark.parametrize("name,shape,kw", [
+    ("causal", dict(b=1, s=128, d=16), dict(causal=True)),
+    ("short_seq", dict(b=1, s=64, d=16), dict(causal=True)),
+    ("unaligned", dict(b=1, h=1, s=200, d=16), dict(causal=True)),
+    ("noncausal", dict(b=1, s=128, d=16), dict(causal=False)),
+    ("q_offset", dict(b=1, s=64, d=16), dict(causal=True, q_offset=64)),
+    ("chunk_at_offset", dict(b=1, s=32, s_k=96, d=16),
+     dict(causal=True, q_offset=64)),
+    ("all_rows_dead", dict(b=1, s=64, d=16), dict(causal=True,
+                                                  k_offset=1000)),
+])
+def test_flash_bwd_plain_matches_jax_flash_backward(name, shape, kw):
+    q, k, v = _qkv(**shape)
+    g = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    causal, qo, ko = kw["causal"], kw.get("q_offset", 0), kw.get("k_offset",
+                                                                    0)
+    scale = q.shape[-1] ** -0.5
+    o, lse = jattn._flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal, scale, qo, ko, 64,
+                                  64, interpret=True)
+    want = jattn._flash_backward(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), o, lse, jnp.asarray(g),
+                                 causal, scale, qo, ko, 64)
+    got = tattn.flash_attention_bwd_plain(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, g)),
+        causal=causal, sm_scale=scale, q_offset=qo, k_offset=ko, block_k=64)
+    for a, b in zip(got, want):
+        # the same blockwise algorithm in f32 on both sides
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=1e-5)
+    if name == "all_rows_dead":
+        for a in got:
+            np.testing.assert_array_equal(a.numpy(), 0.0)
+    # the wrapper takes the plain version for tensors on the CPU
+    wrapped = tattn.flash_attention_bwd(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, g)),
+        causal=causal, q_offset=qo, k_offset=ko, block_k=64)
+    for a, b in zip(wrapped, got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    # the gradient cases of tests/test_ops.py::TestFlashAttention
+    (dict(b=1, h=2, s=128, d=16), dict(block_q=64, block_k=64)),
+    (dict(b=1, h=2, s=64, d=16), dict()),
+    (dict(b=1, h=1, s=200, d=16), dict()),
+])
+def test_flash_grads_match_jax_grad(shape, blocks):
+    q, k, v = _qkv(**shape)
+
+    def f_jax(q, k, v):
+        return jnp.sum(jattn.flash_attention(q, k, v, **blocks) ** 2)
+
+    want = jax.grad(f_jax, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (tattn.flash_attention(tq, tk, tv, **blocks) ** 2).sum().backward()
+    for t, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **GRAD_TOL)

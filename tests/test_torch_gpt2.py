@@ -34,7 +34,8 @@ def _port_logits(dtype, params, ids, impl="flash"):
     model = GPT2LMModel(GPT2Config(**TINY, dtype=dtype, attention_impl=impl),
                         device="cpu")
     model.load_state_dict(params_from_flax(params))
-    return model(torch.from_numpy(ids)).float().numpy()
+    with torch.no_grad():
+        return model(torch.from_numpy(ids)).float().numpy()
 
 
 def _ids(b=2, s=40, seed=0):
