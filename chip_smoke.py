@@ -8,18 +8,24 @@ Phases, each fatal on failure:
      so that f32 comparisons are f32;
   2. build: every kernel source in ray_tpu_torch/csrc (flash_fwd.cu,
      flash_bwd.cu), one nvcc each, in parallel, with each kernel's registers
-     and spills from ptxas; then the SASS of the bf16 tensor-core kernel
-     must hold wgmma (HGMMA) and TMA loads (UTMALDG), counted with cuobjdump;
+     and spills from ptxas (a D = 64 tensor-core backward kernel must not
+     spill); then the SASS of every bf16 tensor-core kernel (the forward,
+     dK/dV and dQ) must hold wgmma (HGMMA) and TMA loads (UTMALDG), counted
+     with cuobjdump;
   3. forward kernels: each against its plain PyTorch version on the card at
      the shapes the serving path gives it (and the JAX suite's cases), with
      the plan it chose (variant, KV splits), times beside the plain version,
      one library call and the card's bound; then the split-KV combine
      kernel against its plain version at the serving decode's partials;
   3b. backward kernels (delta, dK/dV, dQ) against flash_attention_bwd_plain
-     on the forward kernel's o and lse, at the training path's shape and six
-     more cases: each result repeated bit for bit, device time in total and
-     per kernel, the plain version, the backward of
-     scaled_dot_product_attention as the library yardstick, and the bound;
+     on the forward kernel's o and lse, at the training path's shape and
+     nine more cases: the variant each took (tensor cores for bf16 at D 64
+     and 128), nothing copied, each result repeated bit for bit; at the
+     training shape and at D = 128 the kernels' error against the f32
+     backward of f32 upcasts at most 1.5x that of autograd through bf16
+     mha_reference; device time in total and per kernel, the plain version,
+     the backward of scaled_dot_product_attention as the library
+     yardstick, and the bound;
   4. model: full-width GPT-2-small logits, flash against reference
      attention, in f32 and at the model's default bf16; then the serving
      runner's prefill against the model;
@@ -45,6 +51,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -330,10 +337,17 @@ BWD_CASES = [
     # q/k/v as views of one (B, S, 3E) tensor and g as the (B, H, S, D)
     # view of a (B, S, H, D) tensor: GPT2LMModel's training layout
     ("fused_qkv_bf16", torch.bfloat16, 4, 12, 1024, 1024, 64, True, 0, 0),
+    # the tensor-core kernels' ragged edges, offsets and dead rows
+    ("unaligned_noncausal_bf16", torch.bfloat16, 2, 12, 200, 200, 64, False,
+     0, 0),
+    ("chunk_offset_bf16", torch.bfloat16, 1, 12, 128, 512, 64, True, 384, 0),
+    ("fully_masked_bf16", torch.bfloat16, 1, 12, 64, 64, 64, True, 0, 1000),
 ]
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # the training path's own shape
 TRAIN_CASE = "train_bf16"
+# cases held to the bf16 accuracy bar (_bf16_accuracy)
+ACCURACY_CASES = {"train_bf16", "d128_causal_bf16"}
 
 
 def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
@@ -358,6 +372,35 @@ def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
         out[key] = (max(t_bytes, t_ops),
                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _bf16_accuracy(name, q, k, v, o, lse, g, got, kw):
+    """Max error of the kernels' (dq, dk, dv) against the f32 backward of
+    f32 upcasts of the same inputs (o and lse included), beside that of
+    autograd through bf16 ``mha_reference``.  The kernels round P and dS to
+    bf16 before three of their products; the bar, phase 4's for the
+    forward, is that they add no error beyond bf16's: at most 1.5x the
+    reference's, gradient by gradient."""
+    from ray_tpu_torch.ops.attention import (
+        flash_attention_bwd_plain,
+        mha_reference,
+    )
+
+    exact = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                      o.float(), lse, g.float(), **kw)
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    ref = torch.autograd.grad(mha_reference(lq, lk, lv, **kw), (lq, lk, lv),
+                              g)
+    out = {}
+    for key, a, r, x in zip(("dq", "dk", "dv"), got, ref, exact):
+        out[key] = ((a.float() - x).abs().max().item(),
+                    (r.float() - x).abs().max().item())
+        if not out[key][0] <= 1.5 * out[key][1]:
+            raise AssertionError(f"{name} {key}: the kernels are "
+                                 f"{out[key][0]:.3e} from the f32 backward, "
+                                 f"bf16 mha_reference's autograd "
+                                 f"{out[key][1]:.3e} (bar 1.5x)")
     return out
 
 
@@ -409,7 +452,7 @@ def backward_cases(card):
                 for key, a, b in zip(("dq", "dk", "dv"), got, want)}
         errs["delta"] = _check_close(f"{name} delta", delta,
                                      flash_bwd_delta_plain(o, g), F32_TOL)
-        if name == "fully_masked_f32":
+        if name.startswith("fully_masked"):
             if not all(bool((t == 0).all()) for t in got):
                 raise AssertionError("fully masked rows must give dq, dk, "
                                      "dv == 0")
@@ -417,6 +460,13 @@ def backward_cases(card):
             raise AssertionError(f"{name}: the backward copied "
                                  f"{plan['copied']}; strided inputs with a "
                                  f"contiguous head dim go in as they are")
+        variant = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+                   else "simt")
+        if plan["variant"] != variant:
+            raise AssertionError(f"{name}: the backward took the "
+                                 f"{plan['variant']} kernels, not {variant}")
+        accuracy = (_bf16_accuracy(name, q, k, v, o, lse, g, got, kw)
+                    if name in ACCURACY_CASES else None)
 
         # the library yardstick: the backward of scaled_dot_product_attention
         # with the same mask, on inputs that require grad
@@ -451,26 +501,38 @@ def backward_cases(card):
         peak = f32_peak if dtype == torch.float32 else bf16_peak
         bounds = _bwd_bounds(B, H, Sq, Sk, D, q.element_size(), pairs, peak,
                              bw)
+        kms = times["kernel_ms"]
         rows.append({
             "case": name, "shape": [B, H, Sq, Sk, D],
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "q_offset": qo, "k_offset": ko, "plan": plan,
             "max_abs_err": errs, "tol": list(tol), **times,
             "bound_ms": bounds["op"][0], "bound_by": bounds["op"][1],
+            "ms_over_bound": times["ms"] / bounds["op"][0],
             "kernel_bounds": {k: list(v) for k, v in bounds.items()
                               if k != "op"},
+            "kernel_ms_over_bound": {k: kms[k] / bounds[k][0]
+                                     for k in BWD_KERNELS},
+            "bf16_accuracy": accuracy,
         })
-        kms = times["kernel_ms"]
-        print(f"[kernel] flash_bwd {name}: grids dkdv={plan['grid_dkdv']} "
-              f"dq={plan['grid_dq']} copied={plan['copied']}; max_abs_err "
+        acc_text = "" if accuracy is None else (
+            "; accuracy vs the f32 backward, kernels / bf16 mha_reference "
+            "autograd: " + " ".join(f"{k} {a:.3e}/{r:.3e}"
+                                    for k, (a, r) in accuracy.items())
+            + " (bar 1.5x)")
+        print(f"[kernel] flash_bwd {name}: variant={plan['variant']} grids "
+              f"dkdv={plan['grid_dkdv']} dq={plan['grid_dq']} copied="
+              f"{plan['copied']}; max_abs_err "
               + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-              + f" (atol={tol[0]}, rtol={tol[1]}); repeat bitwise; "
-              f"ms={times['ms']:.4f} (delta {kms['flash_bwd_delta']:.4f}, "
-              f"dkdv {kms['flash_bwd_dkdv']:.4f}, dq "
-              f"{kms['flash_bwd_dq']:.4f}) plain_ms={times['plain_ms']:.4f} "
-              f"library_ms={times['library_ms']:.4f} bound_ms="
-              f"{bounds['op'][0]:.5f} ({bounds['op'][1]}); per kernel bound "
-              + " ".join(f"{k[10:]} {v[0]:.5f} ({v[1]})"
+              + f" (atol={tol[0]}, rtol={tol[1]}); repeat bitwise{acc_text}; "
+              f"ms={times['ms']:.5f} (delta {kms['flash_bwd_delta']:.5f}, "
+              f"dkdv {kms['flash_bwd_dkdv']:.5f}, dq "
+              f"{kms['flash_bwd_dq']:.5f}) plain_ms={times['plain_ms']:.4f} "
+              f"library_ms={times['library_ms']:.5f} bound_ms="
+              f"{bounds['op'][0]:.5f} ({bounds['op'][1]}), ms/bound "
+              f"{rows[-1]['ms_over_bound']:.2f}; per kernel bound "
+              + " ".join(f"{k[10:]} {v[0]:.5f} ({v[1]}, ms/bound "
+                         f"{rows[-1]['kernel_ms_over_bound'][k]:.2f})"
                          for k, v in bounds.items() if k != "op"),
               flush=True)
     return rows
@@ -492,28 +554,84 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found: cannot read the kernels' SASS")
 
 
-def sass_check(lib_path) -> dict:
+def _kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_wgmma<64>`` or ``flash_fwd_simt<bf16,32>`` for the
+    mangled name of one of the port's (template) kernels."""
+    m = re.search(r"\d(flash_[a-z_]*[a-z])I(.*?)Ev", mangled)
+    if m is None:
+        return mangled
+    args = ["bf16" if "nv_bfloat16" in a else "f32" if a == "f" else a[2:]
+            for a in re.findall(r"13__nv_bfloat16|Li\d+|^f", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+# the bf16 tensor-core kernels: each must hold wgmma and TMA loads, two
+# instances (D 64 and 128) of each
+TC_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dkdv_wgmma",
+              "flash_bwd_dq_wgmma")
+
+
+def sass_check(libs) -> dict:
     """Counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-    kernel of the library; fails unless the bf16 tensor-core kernels have
+    kernel of the libraries; fails unless every bf16 tensor-core kernel has
     both."""
-    out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
-                         capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
-        elif fn is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[fn][op] += op in line
-    tc = {f: c for f, c in counts.items() if "flash_fwd_wgmma" in f}
+    counts = {}
+    for lib_path in libs.values():
+        out = subprocess.run([_cuobjdump(), "-sass", str(lib_path)],
+                             capture_output=True, text=True,
+                             check=True).stdout
+        fn = None
+        for line in out.splitlines():
+            if "Function :" in line:
+                fn = _kernel_name(line.split("Function :", 1)[1].strip())
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "UTMALDG"):
+                    counts[fn][op] += op in line
     for f, c in sorted(counts.items()):
         print(f"[build] SASS {f}: HGMMA={c['HGMMA']} UTMALDG={c['UTMALDG']}")
-    if not tc or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
-                     for c in tc.values()):
-        raise AssertionError(f"the bf16 tensor-core kernel lacks wgmma or "
-                             f"TMA loads in its SASS: {tc}")
+    tc = {f: c for f, c in counts.items() if f.split("<")[0] in TC_KERNELS}
+    if (sorted(f.split("<")[0] for f in tc) != sorted(TC_KERNELS * 2)
+            or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
+                   for c in tc.values())):
+        raise AssertionError(f"a bf16 tensor-core kernel is missing or "
+                             f"lacks wgmma or TMA loads in its SASS: {tc}")
     return tc
+
+
+def ptxas_report(logs) -> dict:
+    """Registers and spilled bytes of every kernel, from the ptxas reports
+    of the build; fails if a D = 64 tensor-core backward kernel (the
+    training path's) spills."""
+    report, fn = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"(?:Function properties for |Compiling entry "
+                          r"function ')([^' ]+)", line)
+            if m:
+                fn = _kernel_name(m.group(1))
+                report.setdefault(fn, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn is not None:
+                report[fn]["spill_stores"] = int(m.group(1))
+                report[fn]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                report[fn]["registers"] = int(m.group(1))
+    for f, r in sorted(report.items()):
+        print(f"[build] ptxas {f}: registers={r.get('registers')} "
+              f"spill_stores={r.get('spill_stores')} "
+              f"spill_loads={r.get('spill_loads')}")
+    train = [f for f in report if f in ("flash_bwd_dkdv_wgmma<64>",
+                                        "flash_bwd_dq_wgmma<64>")]
+    if len(train) != 2 or any(report[f].get("spill_stores", 1)
+                              or report[f].get("spill_loads", 1)
+                              for f in train):
+        raise AssertionError(f"the D = 64 tensor-core backward kernels must "
+                             f"be reported without spills: "
+                             f"{ {f: report[f] for f in train} }")
+    return report
 
 
 # ------------------------------------------------------------- phase 4
@@ -849,12 +967,8 @@ def main() -> int:
     libs = build.build_all()
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
-    sass_check(libs["flash_fwd"])
+    ptxas = ptxas_report(build.build_logs)
+    sass_check(libs)
 
     # 3. kernels against their plain versions
     rows = attention_cases(card)
@@ -904,6 +1018,9 @@ def main() -> int:
                       ("flash_bwd_dq", errs["dq"])):
         bound, bound_by = train_row["kernel_bounds"][name]
         delta = name == "flash_bwd_delta"
+        extra = {} if delta else {
+            "variant": train_row["plan"]["variant"],
+            "ptxas": ptxas.get(f"{name}_{train_row['plan']['variant']}<64>")}
         backward.append({
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_bwd.cu",
@@ -915,7 +1032,7 @@ def main() -> int:
             "bound_ms": bound, "bound_by": bound_by,
             # dq, dk, dv together: the backward of scaled_dot_product_attention
             "library_ms": None if delta else train_row["library_ms"],
-            "shape": TRAIN_CASE, "pass": True,
+            "shape": TRAIN_CASE, "pass": True, **extra,
         })
     # the whole backward op, and every case of phase 3b, on the last entry
     backward[-1].update(op_ms=train_row["ms"],

@@ -2,59 +2,92 @@
 //
 // Replaces `_flash_backward` (ray_tpu/ops/attention.py:189-247), the
 // custom_vjp backward of the Pallas forward kernel (:251-273).  There it is
-// an XLA `lax.scan` over KV blocks; here it is three kernels, launched in
-// this order on one stream, with no atomics, so a result repeats bit for bit:
+// an XLA `lax.scan` over KV blocks that carries dq; here it is three kernels,
+// launched in this order on one stream:
 //
 //  * flash_bwd_delta: delta[b,h,i] = sum_d o*g in f32 (o and g widened from
 //    the input type), one row per warp.
-//  * flash_bwd_dkdv: grid (ceil(Sk/64), B*H).  A CTA keeps one 64-key tile of
-//    K and V in shared memory and accumulates dK and dV for it in registers.
-//    It walks the 64-row query tiles from the first one whose last row can
-//    see the tile's first key (the causal arithmetic of the forward's
-//    visible_tiles, with q_offset and k_offset).  Per tile it recomputes
-//    S = (q*scale) K^T and dP = g V^T, masks keys >= Sk, causal pairs and
-//    dead rows (lse <= -5e29 gives P = 0), takes P = exp(S - lse),
-//    dS = P * (dP - delta), and accumulates dV += P^T g, dK += dS^T (q*scale).
-//  * flash_bwd_dq: grid (ceil(Sq/64), B*H).  A CTA keeps a 64-row tile of
-//    q*scale, g, lse and delta, walks the KV tiles its rows can see,
-//    recomputes S, P, dP and dS as above, and accumulates dQ += dS K; the
-//    epilogue multiplies by sm_scale (dK gets its scale through q*scale).
+//  * dK/dV: grid (ceil(Sk/64), B*H).  A CTA owns one 64-key tile and walks
+//    the 64-row query tiles from the first one whose last row can see the
+//    tile's first key (the causal arithmetic of the forward's visible_tiles,
+//    with q_offset and k_offset).  Per query tile it recomputes S and dP,
+//    masks keys >= Sk, causal pairs and dead rows (lse <= -5e29 gives
+//    P = 0), takes P = exp(S*scale - lse), dS = P * (dP - delta), and
+//    accumulates dV += P^T g and dK += dS^T q; dK takes sm_scale at the end.
+//  * dQ: grid (ceil(Sq/64), B*H).  A CTA owns a 64-row query tile and its
+//    lse and delta, walks exactly the KV tiles its rows can see, recomputes
+//    S, P, dP and dS as above, and accumulates dQ += dS K; the epilogue
+//    multiplies by sm_scale.
 //
-// Every product is exact f32 FMA on the CUDA cores, for f32 and bf16 inputs
-// alike: bf16 is widened on load, all tiles live in shared memory as f32,
-// and dq, dk, dv are written once, contiguous (B, H, S, D), in the input
-// type.  Inputs are strided (batch, head and sequence strides in elements,
-// a contiguous head dim): the training path hands q, k, v as views of the
-// fused QKV projection and g as a transposed view.  D is 16, 32, 64 or 128.
+// No atomics.  A dQ summed by atomics from the dK/dV CTAs would save the
+// second pass, but its summation order would change from run to run; with
+// two kernels every CTA owns its outputs, every sum has a fixed order, and a
+// gradient repeats bit for bit.  The price is S and dP computed twice.
 //
-// Shared memory per CTA, in f32: four 64 x (D+4) tiles and the 64 x 68
-// score tiles (dkdv: P and dS; dq: dS), plus lse and delta.  At D = 128 that
-// is 166.5 KB for dkdv and 149.5 KB for dq, above the 48 KB default, so each
-// launch first raises the kernel's dynamic shared-memory limit; a refused
-// attribute or launch returns its CUDA error and the wrapper raises.
+// Each of dK/dV and dQ has two variants, chosen by (dtype, D) alone
+// (ops/attention.py:bwd_variant chooses the same):
 //
-// What bounds it on this card.  The work is 10*D flops per visible
-// (query, key) pair (S, dV, dP, dQ and dK, each 2*D, counted once) against
-// the bytes of q, k, v, o, g and lse read once and dq, dk, dv written once;
-// at the training shape (B 16, H 12, S 1024, D 64, causal, bf16) that is
-// 64.5 GFLOP against 0.20 GB.  On the CUDA cores (f32, 67 TFLOP/s) it is
-// bound by operations at about 0.96 ms; at the bf16 tensor-core peak
-// (989 TFLOP/s) the bound is 0.065 ms, just above the 0.060 ms of bytes at
-// 3.35 TB/s.  This design computes S and dP twice (once per kernel), which
-// the bound does not count.  Tensor cores (wgmma), TMA and a dQ by atomics
-// are later work.
+//  * *_wgmma (bf16, D 64 or 128): the tensor cores.  One consumer warpgroup
+//    (128 threads) on 64 rows, as the forward's flash_fwd_wgmma.  Tiles
+//    arrive by TMA (cp.async.bulk.tensor, 64 x 64 boxes, 128-byte swizzle,
+//    completion on mbarriers, thread 0 the only producer): the CTA's own
+//    tiles once, the streamed ones through a 2-stage ring that thread 0
+//    refills as soon as the warpgroup is done with a stage.  Every product
+//    is wgmma with bf16 inputs and f32 accumulators, in a form the forward
+//    already uses: S^T = K q^T and dP^T = V g^T (dK/dV), S = q K^T and
+//    dP = g V^T (dQ), both operands K-major in shared memory; then P^T (or
+//    dS) converted to bf16 in registers as wgmma's A operand for dV += P^T g
+//    and dK += dS^T q (dQ += dS K), the B tile read through an MN-major
+//    descriptor: the same shared tile that the S product read K-major.
+//    Scores never touch shared memory.  In the dK/dV kernel the query index
+//    is the accumulator's column, so lse and delta of the query tile are
+//    staged in shared memory beside it (a dead or padded row as
+//    lse = +inf, which makes exp2 give exactly 0).  S stays f32:
+//    sm_scale is applied after the product, never to q in bf16 (1/sqrt(128)
+//    is not a power of two), and P = exp2(S*scale*log2(e) - lse*log2(e)).
+//    The rounding this variant adds: P and dS go to bf16 (8 significant
+//    bits) before the dV, dK and dQ products; S, dP and every accumulation
+//    are f32.  Warp specialisation, ping-pong between two warpgroups,
+//    setmaxnreg and a fused delta are later work.
+//  * *_simt (f32, and bf16 with D 16 or 32): exact f32 FMA on the CUDA
+//    cores (the f32 parity bars are 1e-5): bf16 widened on load, all tiles
+//    in shared memory as f32, 256 threads each owning a 4 x 4 block of the
+//    64 x 64 score tile, P and dS passed through shared memory.
+//
+// dq, dk, dv are written once, contiguous (B, H, S, D), in the input type.
+// Inputs are strided (batch, head and sequence strides in elements, a
+// contiguous head dim): the training path hands q, k, v as views of the
+// fused QKV projection and g as a transposed view; the tensor-core variant
+// needs 16-byte bases and strides (the wrapper copies an input that has
+// not).  TMA fills rows past S with zeros; rows past Sq are dead, keys past
+// Sk masked, and dK/dV rows past Sk not stored.
+//
+// What bounds it on this card.  The function needs 10*D flops per visible
+// (query, key) pair (S, dV, dP, dQ and dK, each 2*D); this two-pass design
+// does 14*D (S and dP in both kernels: 8*D in dK/dV, 6*D in dQ).  At the
+// training shape (B 16, H 12, S 1024, D 64, causal, bf16: 1.008e8 visible
+// pairs) 10*D is 64.5 GFLOP, 0.065 ms at the bf16 tensor-core peak
+// (989 TFLOP/s), and 14*D is 90.3 GFLOP, 0.091 ms; the bytes (q, k, v, o,
+// g and lse read once, dq, dk, dv written once, 0.20 GB) take 0.060 ms at
+// 3.35 TB/s.  So it is bound by operations, on the tensor cores only: the
+// CUDA cores' f32 rate (67 TFLOP/s) would put the floor at 0.96 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;   // query rows per tile
 constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per CTA: 16 x 16, each a 4 x 4 block
+constexpr int NT = 256;  // threads per CUDA-core CTA: 16 x 16, each 4 x 4
 constexpr int PS = BK + 4;  // row stride of the 64 x 64 score tiles
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -86,6 +119,38 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ bool key_visible(const Params& p, int key,
+                                            int qpos) {
+  return key < p.Sk && (!p.causal || qpos >= key + p.k_offset);
+}
+
+// The first query tile holding a row that can see key k0.
+__device__ __forceinline__ int first_q_tile(const Params& p, int k0) {
+  if (!p.causal) return 0;
+  const int first = k0 + p.k_offset - p.q_offset;
+  return first <= 0 ? 0 : first / BQ;
+}
+
+// KV tiles that the real rows [q0, min(q0 + 64, Sq)) can see, as the
+// forward's visible_tiles counts them.
+__device__ __forceinline__ int visible_kv_tiles(const Params& p, int q0) {
+  int n = (p.Sk + BK - 1) / BK;
+  if (p.causal) {
+    const int last_k = min(q0 + BQ, p.Sq) - 1 + p.q_offset - p.k_offset;
+    n = last_k < 0 ? 0 : min(n, last_k / BK + 1);
+  }
+  return n;
+}
+
+// Whether the (query tile q0, key tile k0) pair holds a masked pair: keys
+// past Sk, or under the causal mask a key later than the tile's first query.
+__device__ __forceinline__ bool pair_needs_mask(const Params& p, int q0,
+                                                int k0) {
+  return k0 + BK > p.Sk ||
+         (p.causal && k0 + BK - 1 + p.k_offset > q0 + p.q_offset);
+}
+
+// ======================================================== CUDA-core path
 // Rows [r0, r0 + 64) of a strided (S, D) slice into a shared f32 tile with
 // row stride D + 4, times `scale`; rows past S are zero.
 template <typename T, int D>
@@ -128,11 +193,6 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
         acc[i][c] = fmaf(a[i].w, b[c].w, acc[i][c]);
       }
   }
-}
-
-__device__ __forceinline__ bool key_visible(const Params& p, int key,
-                                            int qpos) {
-  return key < p.Sk && (!p.causal || qpos >= key + p.k_offset);
 }
 
 // P and dS of one 4 x 4 block: rows 4*ty + i of the query tile at q0, keys
@@ -194,15 +254,15 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
   if (lane == 0) delta[row] = acc;
 }
 
-// =========================================================== dK/dV kernel
+// ============================================== dK/dV kernel, CUDA cores
 template <int D>
-constexpr size_t dkdv_smem() {
+constexpr size_t dkdv_simt_smem() {
   return sizeof(float) * (4 * 64 * (D + 4) + 2 * 64 * PS + 2 * 64);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkdv(const Params p) {
+flash_bwd_dkdv_simt(const Params p) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int RS = D + 4;
   constexpr int DC = D / 16;  // columns of dK/dV per thread
@@ -234,14 +294,8 @@ flash_bwd_dkdv(const Params p) {
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[j][c] = dv[j][c] = 0.f;
 
-  // the first query tile holding a row that can see key k0
-  int iq = 0;
-  if (p.causal) {
-    const int first = k0 + p.k_offset - p.q_offset;
-    iq = first <= 0 ? 0 : first / BQ;
-  }
   const int n_q = (p.Sq + BQ - 1) / BQ;
-  for (; iq < n_q; ++iq) {
+  for (int iq = first_q_tile(p, k0); iq < n_q; ++iq) {
     const int q0 = iq * BQ;
     __syncthreads();  // every reader of the previous tile is done
     load_tile<T, D>(sQ, qp, p.q_ss, q0, p.Sq, p.sm_scale);
@@ -301,15 +355,15 @@ flash_bwd_dkdv(const Params p) {
   }
 }
 
-// ============================================================== dQ kernel
+// ================================================= dQ kernel, CUDA cores
 template <int D>
-constexpr size_t dq_smem() {
+constexpr size_t dq_simt_smem() {
   return sizeof(float) * (4 * 64 * (D + 4) + 64 * PS + 2 * 64);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq(const Params p) {
+flash_bwd_dq_simt(const Params p) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int RS = D + 4;
   constexpr int DC = D / 16;  // columns of dQ per thread
@@ -333,14 +387,7 @@ flash_bwd_dq(const Params p) {
   load_tile<T, D>(sQ, qp, p.q_ss, q0, p.Sq, p.sm_scale);
   load_tile<T, D>(sG, gp, p.g_ss, q0, p.Sq, 1.f);
   load_row_stats(p, bh, q0, sL, sD);
-
-  // KV tiles that the real rows [q0, min(q0 + 64, Sq)) can see, as the
-  // forward's visible_tiles counts them
-  int n = (p.Sk + BK - 1) / BK;
-  if (p.causal) {
-    const int last_k = min(q0 + BQ, p.Sq) - 1 + p.q_offset - p.k_offset;
-    n = last_k < 0 ? 0 : min(n, last_k / BK + 1);
-  }
+  const int n = visible_kv_tiles(p, q0);
 
   // dQ rows 4*ty + i of this query tile, columns tx + 16*c
   float dq[4][DC];
@@ -398,41 +445,403 @@ flash_bwd_dq(const Params p) {
   }
 }
 
+// ===================================================== tensor-core path
+constexpr int WG_NT = 128;      // one consumer warpgroup
+constexpr int WG_STAGES = 2;    // ring depth of the streamed tiles
+constexpr int SUB = 64 * 64 * 2;  // one 64 x 64 bf16 sub-tile, 8 KB
+
+// Bytes of dynamic shared memory: two resident 64-row tiles, then two per
+// stage; +1024 to align the base for the swizzle.
+template <int D>
+constexpr size_t wgmma_smem() {
+  return (size_t)(D / 64) * SUB * (2 + 2 * WG_STAGES) + 1024;
+}
+
+// lse in base 2 of query row qi (a row past Sq, or a dead row with
+// lse <= -5e29, as +inf: exp2(x - inf) is exactly 0), and its delta.
+__device__ __forceinline__ float row_lse2(const Params& p, int bh, int qi) {
+  const float l = qi < p.Sq ? p.lse[(int64_t)bh * p.Sq + qi] : NEG_INF;
+  return l > NEG_INF * 0.5f ? l * LOG2E : __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ float row_delta(const Params& p, int bh, int qi) {
+  return qi < p.Sq ? p.delta[(int64_t)bh * p.Sq + qi] : 0.f;
+}
+
+// acc (+)= A B^T over the head dim, A and B two 64-row bf16 tiles of
+// swizzled 64-column sub-tiles, both K-major (the S and dP products).
+template <int D>
+__device__ __forceinline__ void wgmma_tile_abt(float (&acc)[32],
+                                               const unsigned char* a,
+                                               const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * SUB + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(acc, desc_sw128(a + off, 16, 1024),
+                       desc_sw128(b + off, 16, 1024), 1);
+  }
+}
+
+// acc += A B, A a 64 x 64 bf16 fragment in registers (16 columns per
+// a[kk]), B a 64-row tile read MN-major (the dV, dK and dQ products).
+template <int D>
+__device__ __forceinline__ void wgmma_frag_b(float (&acc)[D / 2],
+                                             const uint32_t (&a)[4][4],
+                                             const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // 16 rows of B a step
+    wgmma_rs<D>(acc, a[kk], desc_sw128(b + kk * 2048, SUB, 1024));
+}
+
+// A 64 x 64 f32 accumulator fragment as bf16 register A operands.
+__device__ __forceinline__ void to_frag(uint32_t (&a)[4][4],
+                                        const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_NT)
+flash_bwd_dkdv_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g) {
+  static_assert(D == 64 || D == 128, "the tensor-core path takes D 64 or 128");
+  constexpr int NH = D / 64;      // 64-column sub-tiles (128-byte rows)
+  constexpr int TILE = NH * SUB;  // bytes of one 64-row tile
+  constexpr int NA = D / 2;       // dK (and dV) registers per thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES];
+  __shared__ __align__(8) uint64_t kvbar;
+  // per stage: lse * log2(e) (+inf for dead rows) and delta of the q tile
+  __shared__ __align__(16) float sL2[WG_STAGES][BQ];
+  __shared__ __align__(16) float sDl[WG_STAGES][BQ];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* sK = base;
+  unsigned char* sV = base + TILE;
+  auto sQ = [&](int st) { return base + TILE * (2 + 2 * st); };
+  auto sG = [&](int st) { return base + TILE * (3 + 2 * st); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.x * BK;
+  const int iq0 = first_q_tile(p, k0);
+  const int n = max((p.Sq + BQ - 1) / BQ - iq0, 0);
+
+  auto issue_qg = [&](int it) {  // thread 0 only
+    const int st = it % WG_STAGES;
+    const int q0 = (iq0 + it) * BQ;
+    mbar_arrive_expect_tx(&full[st], 2 * TILE);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      tma_load_4d(sQ(st) + hh * SUB, &tm_q, &full[st], hh * 64, q0, h, b);
+      tma_load_4d(sG(st) + hh * SUB, &tm_g, &full[st], hh * 64, q0, h, b);
+    }
+  };
+  // threads 0-63 stage the lse of a tile's rows, threads 64-127 its delta
+  auto fetch_row = [&](int it) {
+    const int qi = (iq0 + it) * BQ + tid % BQ;
+    return tid < BQ ? row_lse2(p, bh, qi) : row_delta(p, bh, qi);
+  };
+  auto put_row = [&](int st, float x) {
+    (tid < BQ ? sL2[st] : sDl[st])[tid % BQ] = x;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(&kvbar, 1);
+    fence_barrier_init();
+  }
+  for (int it = 0; it < min(n, WG_STAGES); ++it) put_row(it, fetch_row(it));
+  __syncthreads();
+  if (tid == 0 && n > 0) {  // a key tile no query sees loads nothing
+    mbar_arrive_expect_tx(&kvbar, 2 * TILE);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      tma_load_4d(sK + hh * SUB, &tm_k, &kvbar, hh * 64, k0, h, b);
+      tma_load_4d(sV + hh * SUB, &tm_v, &kvbar, hh * 64, k0, h, b);
+    }
+    for (int it = 0; it < min(n, WG_STAGES); ++it) issue_qg(it);
+  }
+
+  // accumulator fragments: this thread's key rows r0 and r0 + 8; register
+  // 4c + e holds column 8c + 2*(lane % 4) + (e & 1) of row r0 + 8*(e >> 1)
+  // (a query for S^T and dP^T, a head-dim index for dK and dV)
+  const int r0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float scale2 = p.sm_scale * LOG2E;
+  float dk[NA], dv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n > 0) mbar_wait(&kvbar, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % WG_STAGES;
+    const int q0 = (iq0 + it) * BQ;
+    // the row stats of a later tile, stored once this stage is free
+    const float next = it + WG_STAGES < n ? fetch_row(it + WG_STAGES) : 0.f;
+    mbar_wait(&full[st], (it / WG_STAGES) & 1);
+
+    // S^T = K q^T and dP^T = V g^T
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_tile_abt<D>(s, sK, sQ(st));
+    wgmma_tile_abt<D>(dp, sV, sG(st));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T*scale - lse) and dS^T = P^T (dP^T - delta), lse and
+    // delta taken per column (query)
+    const bool masked = pair_needs_mask(p, q0, k0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float2 l2 =
+          *reinterpret_cast<const float2*>(&sL2[st][8 * c + cq]);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(&sDl[st][8 * c + cq]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * c + e;
+        float pv = exp2f(fmaf(s[i], scale2, -((e & 1) ? l2.y : l2.x)));
+        if (masked && !key_visible(p, k0 + r0 + 8 * (e >> 1),
+                                   q0 + 8 * c + cq + (e & 1) + p.q_offset))
+          pv = 0.f;
+        s[i] = pv;
+        dp[i] = pv * (dp[i] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+
+    // dV += P^T g and dK += dS^T q, P^T and dS^T as bf16 register A
+    uint32_t pa[4][4], da[4][4];
+    to_frag(pa, s);
+    to_frag(da, dp);
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+    wgmma_frag_b<D>(dv, pa, sG(st));
+    wgmma_frag_b<D>(dk, da, sQ(st));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+
+    __syncthreads();  // the warpgroup is done with stage st and its stats
+    if (it + WG_STAGES < n) {
+      put_row(st, next);
+      if (tid == 0) issue_qg(it + WG_STAGES);
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int key = k0 + r0 + 8 * hr;
+    if (key >= p.Sk) continue;
+    const int64_t row = ((int64_t)bh * p.Sk + key) * D;
+    __nv_bfloat16* dkrow = static_cast<__nv_bfloat16*>(p.dk) + row;
+    __nv_bfloat16* dvrow = static_cast<__nv_bfloat16*>(p.dv) + row;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * c + cq) =
+          __floats2bfloat162_rn(dk[4 * c + 2 * hr] * p.sm_scale,
+                                dk[4 * c + 2 * hr + 1] * p.sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * c + cq) =
+          __floats2bfloat162_rn(dv[4 * c + 2 * hr], dv[4 * c + 2 * hr + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_NT)
+flash_bwd_dq_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_g) {
+  static_assert(D == 64 || D == 128, "the tensor-core path takes D 64 or 128");
+  constexpr int NH = D / 64;
+  constexpr int TILE = NH * SUB;
+  constexpr int NA = D / 2;  // dQ registers per thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES];
+  __shared__ __align__(8) uint64_t qbar;
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* sQ = base;
+  unsigned char* sG = base + TILE;
+  auto sK = [&](int st) { return base + TILE * (2 + 2 * st); };
+  auto sV = [&](int st) { return base + TILE * (3 + 2 * st); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.x * BQ;
+  const int n = visible_kv_tiles(p, q0);
+
+  auto issue_kv = [&](int it) {  // thread 0 only
+    const int st = it % WG_STAGES;
+    mbar_arrive_expect_tx(&full[st], 2 * TILE);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      tma_load_4d(sK(st) + hh * SUB, &tm_k, &full[st], hh * 64, it * BK, h, b);
+      tma_load_4d(sV(st) + hh * SUB, &tm_v, &full[st], hh * 64, it * BK, h, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(&qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n > 0) {  // rows that see no key load nothing
+    mbar_arrive_expect_tx(&qbar, 2 * TILE);
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      tma_load_4d(sQ + hh * SUB, &tm_q, &qbar, hh * 64, q0, h, b);
+      tma_load_4d(sG + hh * SUB, &tm_g, &qbar, hh * 64, q0, h, b);
+    }
+    for (int it = 0; it < min(n, WG_STAGES); ++it) issue_kv(it);
+  }
+
+  // this thread's query rows r0 and r0 + 8; register 4c + e holds key (for
+  // S, dP) or head-dim index (for dQ) 8c + 2*(lane % 4) + (e & 1) of row
+  // r0 + 8*(e >> 1)
+  const int r0 = 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float scale2 = p.sm_scale * LOG2E;
+  const float l2[2] = {row_lse2(p, bh, q0 + r0), row_lse2(p, bh, q0 + r0 + 8)};
+  const float dl[2] = {row_delta(p, bh, q0 + r0),
+                       row_delta(p, bh, q0 + r0 + 8)};
+  float dq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dq[i] = 0.f;
+
+  if (n > 0) mbar_wait(&qbar, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % WG_STAGES;
+    const int k0 = it * BK;
+    mbar_wait(&full[st], (it / WG_STAGES) & 1);
+
+    // S = q K^T and dP = g V^T
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_tile_abt<D>(s, sQ, sK(st));
+    wgmma_tile_abt<D>(dp, sG, sV(st));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS = P (dP - delta), P = exp(S*scale - lse)
+    const bool masked = pair_needs_mask(p, q0, k0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hr = (i >> 1) & 1;
+      float pv = exp2f(fmaf(s[i], scale2, -l2[hr]));
+      if (masked && !key_visible(p, k0 + 8 * (i / 4) + cq + (i & 1),
+                                 q0 + r0 + 8 * hr + p.q_offset))
+        pv = 0.f;
+      dp[i] = pv * (dp[i] - dl[hr]);
+    }
+
+    // dQ += dS K, dS as bf16 register A, K read MN-major
+    uint32_t da[4][4];
+    to_frag(da, dp);
+    fence_regs(dq);
+    wgmma_fence();
+    wgmma_frag_b<D>(dq, da, sK(st));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+
+    __syncthreads();  // the warpgroup is done with stage st
+    if (tid == 0 && it + WG_STAGES < n) issue_kv(it + WG_STAGES);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + 8 * hr;
+    if (qi >= p.Sq) continue;
+    __nv_bfloat16* row =
+        static_cast<__nv_bfloat16*>(p.dq) + ((int64_t)bh * p.Sq + qi) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * c + cq) =
+          __floats2bfloat162_rn(dq[4 * c + 2 * hr] * p.sm_scale,
+                                dq[4 * c + 2 * hr + 1] * p.sm_scale);
+  }
+}
+
 // ================================================================ host
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
 template <typename T, int D>
-int launch_dkdv(const Params& p, int BH, cudaStream_t s) {
-  constexpr size_t smem = dkdv_smem<D>();
-  cudaError_t err = set_smem(flash_bwd_dkdv<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Sk + BK - 1) / BK, BH);
-  flash_bwd_dkdv<T, D><<<grid, NT, smem, s>>>(p);
+int launch_simt(bool dkdv, const Params& p, int BH, cudaStream_t s) {
+  const size_t smem = dkdv ? dkdv_simt_smem<D>() : dq_simt_smem<D>();
+  const dim3 grid(((dkdv ? p.Sk : p.Sq) + 63) / 64, BH);
+  cudaError_t err;
+  if (dkdv) {
+    err = set_smem(flash_bwd_dkdv_simt<T, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_simt<T, D><<<grid, NT, smem, s>>>(p);
+  } else {
+    err = set_smem(flash_bwd_dq_simt<T, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_simt<T, D><<<grid, NT, smem, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dq(const Params& p, int BH, cudaStream_t s) {
-  constexpr size_t smem = dq_smem<D>();
-  cudaError_t err = set_smem(flash_bwd_dq<T, D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, BH);
-  flash_bwd_dq<T, D><<<grid, NT, smem, s>>>(p);
+template <int D>
+int launch_wgmma(bool dkdv, const Params& p, int B, cudaStream_t s) {
+  CUtensorMap tq, tk, tv, tg;
+  int e = make_map(&tq, p.q, D, p.Sq, p.H, B, p.q_sb, p.q_sh, p.q_ss);
+  if (e == 0) e = make_map(&tk, p.k, D, p.Sk, p.H, B, p.k_sb, p.k_sh, p.k_ss);
+  if (e == 0) e = make_map(&tv, p.v, D, p.Sk, p.H, B, p.v_sb, p.v_sh, p.v_ss);
+  if (e == 0) e = make_map(&tg, p.g, D, p.Sq, p.H, B, p.g_sb, p.g_sh, p.g_ss);
+  if (e != 0) return e;
+  constexpr size_t smem = wgmma_smem<D>();
+  const dim3 grid(((dkdv ? p.Sk : p.Sq) + 63) / 64, B * p.H);
+  cudaError_t err;
+  if (dkdv) {
+    err = set_smem(flash_bwd_dkdv_wgmma<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_wgmma<D><<<grid, WG_NT, smem, s>>>(p, tq, tk, tv, tg);
+  } else {
+    err = set_smem(flash_bwd_dq_wgmma<D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_wgmma<D><<<grid, WG_NT, smem, s>>>(p, tq, tk, tv, tg);
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(bool dkdv, int D, const Params& p, int BH, cudaStream_t s) {
-  switch (D) {
-    case 16: return dkdv ? launch_dkdv<T, 16>(p, BH, s) : launch_dq<T, 16>(p, BH, s);
-    case 32: return dkdv ? launch_dkdv<T, 32>(p, BH, s) : launch_dq<T, 32>(p, BH, s);
-    case 64: return dkdv ? launch_dkdv<T, 64>(p, BH, s) : launch_dq<T, 64>(p, BH, s);
-    case 128: return dkdv ? launch_dkdv<T, 128>(p, BH, s) : launch_dq<T, 128>(p, BH, s);
+// The variant is a function of (dtype, D) alone: bf16 with D 64 or 128 on
+// the tensor cores, the rest on the CUDA cores.
+int dispatch(bool dkdv, int dtype, int D, const Params& p, int B,
+             cudaStream_t s) {
+  const int BH = B * p.H;
+  if (dtype == 1) {
+    switch (D) {
+      case 16: return launch_simt<__nv_bfloat16, 16>(dkdv, p, BH, s);
+      case 32: return launch_simt<__nv_bfloat16, 32>(dkdv, p, BH, s);
+      case 64: return launch_wgmma<64>(dkdv, p, B, s);
+      case 128: return launch_wgmma<128>(dkdv, p, B, s);
+    }
+  } else if (dtype == 0) {
+    switch (D) {
+      case 16: return launch_simt<float, 16>(dkdv, p, BH, s);
+      case 32: return launch_simt<float, 32>(dkdv, p, BH, s);
+      case 64: return launch_simt<float, 64>(dkdv, p, BH, s);
+      case 128: return launch_simt<float, 128>(dkdv, p, BH, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -457,10 +866,7 @@ int run(bool dkdv, const void* q, const void* k, const void* v, const void* g,
   p.sm_scale = sm_scale; p.causal = causal;
   p.q_offset = q_offset; p.k_offset = k_offset;
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(dkdv, D, p, B * H, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(dkdv, D, p, B * H, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(dkdv, dtype, D, p, B, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -494,7 +900,9 @@ extern "C" int ray_flash_bwd_delta(const void* o, const void* g, void* delta,
 }
 
 // dK and dV (B*H, Sk, D) in the input type from q, k, v, g (strided), lse
-// and delta (f32, (B*H, Sq)).  dq is not touched.
+// and delta (f32, (B*H, Sq)).  dq is not touched.  bf16 with D 64 or 128
+// takes the tensor-core kernel, whose TMA maps need every base and stride of
+// q, k, v, g 16-byte aligned; a refused map returns 10000 + its CUresult.
 extern "C" int ray_flash_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -508,7 +916,7 @@ extern "C" int ray_flash_bwd_dkdv(
              g_ss, sm_scale, causal, q_offset, k_offset, stream);
 }
 
-// dQ (B*H, Sq, D) in the input type; the same arguments as
+// dQ (B*H, Sq, D) in the input type; the same arguments and variants as
 // ray_flash_bwd_dkdv, of which dk and dv are not touched.
 extern "C" int ray_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* g,

@@ -570,27 +570,6 @@ constexpr size_t wgmma_smem() {
 }
 
 template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_m64n64k16_rs(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_m64n128k16_rs(o, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
 __global__ void __launch_bounds__(WG_NT)
 flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -723,7 +702,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)  // 16 keys a step; V MN-major
-      wgmma_pv<D>(o, a[kk], desc_sw128(sV(st) + kk * 2048, SUB, 1024));
+      wgmma_rs<D>(o, a[kk], desc_sw128(sV(st) + kk * 2048, SUB, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -803,15 +782,6 @@ flash_fwd_combine(const float* __restrict__ part_acc,
 
 // ================================================================ host
 enum Variant { SIMT = 0, WGMMA = 1, DECODE = 2 };
-// returned when cuTensorMapEncodeTiled refuses a map: kErrTensorMap + CUresult
-constexpr int kErrTensorMap = 10000;
-
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
 
 template <typename T, int D>
 cudaError_t launch_simt(const Params& p, dim3 grid, cudaStream_t stream) {
@@ -829,52 +799,6 @@ cudaError_t launch_decode(const Params& p, dim3 grid, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   flash_fwd_decode<T, D, NQ><<<grid, DEC_NT, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D bf16 map over (D, S, H, B) with a 64 x 64 box and 128-byte swizzle.
-// Strides in elements; the wrapper guarantees 16-byte multiples.  Rows past
-// S read as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
-             int64_t sb, int64_t sh, int64_t ss) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                   const_cast<void*>(ptr), dims, strides, box, estr,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
 }
 
 template <int D>

@@ -22,6 +22,8 @@ Counterpart of ``ray_tpu/ops/attention.py``:
   live-row and padded-key masking, dq with the extra ``sm_scale``;
 - ``flash_attention_bwd`` is its wrapper: on CPU tensors the plain version,
   on CUDA tensors the three kernels of ``csrc/flash_bwd.cu`` or a raise;
+  ``bwd_variant`` says which dK/dV and dQ kernels a dtype and head dim
+  take (tensor cores for bf16 at D 64/128, f32 FMA otherwise);
 - ``flash_attention`` keeps the JAX signature and the (B, H, S, D) layout,
   and is differentiable: ``_FlashAttention`` is the ``custom_vjp`` of
   :251-273, forward by ``flash_attention_fwd`` and backward by
@@ -60,8 +62,9 @@ KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_combine": 0,
 # What the last CUDA launch of the flash forward chose: variant, splits,
 # grid, and which inputs it copied to aligned memory.
 LAST_PLAN: Optional[Dict] = None
-# The same for the last CUDA backward: its grids, and the inputs it copied
-# (only those whose head dim is not contiguous; strides are taken as given).
+# The same for the last CUDA backward: its variant (``bwd_variant``), grids,
+# and the inputs it copied (a head dim that is not contiguous, or on the
+# tensor-core path a base or stride that is not a 16-byte multiple).
 LAST_BWD_PLAN: Optional[Dict] = None
 
 _fn = None
@@ -547,6 +550,35 @@ def _bwd_kernels():
     return _bwd_fns
 
 
+def bwd_variant(dtype: torch.dtype, d: int) -> str:
+    """Which dK/dV and dQ kernels ``csrc/flash_bwd.cu`` runs for inputs of
+    ``dtype`` and head dim ``d`` (the C entries choose the same):
+    ``"wgmma"`` (tensor cores, TMA tiles) for bf16 with D 64 or 128,
+    ``"simt"`` (exact f32 FMA on the CUDA cores) otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+
+
+def _bwd_inputs(variant: str, named):
+    """The backward kernels' inputs ``(name, tensor)`` as they will read
+    them: ``(tensors, strides, copied)``.  Every kernel needs a contiguous
+    head dim; the tensor-core kernels load q, k, v and g by TMA, which also
+    needs 16-byte bases and strides.  An input that fails is copied to
+    fresh contiguous memory and named in ``copied``; strides are those of
+    ``_kernel_strides`` (dims 0..2, elements)."""
+    copied, inputs, strides = [], [], []
+    for name, t in named:
+        st, ok = _kernel_strides(t.shape, t.stride(), t.element_size())
+        tma = variant == "wgmma" and name != "o"
+        if t.stride(3) != 1 or (tma and not (ok and t.data_ptr() % 16 == 0)):
+            t = torch.empty_like(
+                t, memory_format=torch.contiguous_format).copy_(t)
+            st, _ = _kernel_strides(t.shape, t.stride(), t.element_size())
+            copied.append(name)
+        inputs.append(t)
+        strides.append(st)
+    return inputs, strides, copied
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool, sm_scale: float,
                     q_offset: int, k_offset: int):
     global LAST_BWD_PLAN
@@ -578,24 +610,19 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool, sm_scale: float,
     dv = torch.empty((b, h, s_k, d), dtype=v.dtype, device=q.device)
     if s_q == 0 or s_k == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # the kernels read any batch, head and sequence strides with a
-    # contiguous head dim; an input without one is copied first
-    copied, inputs = [], []
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)):
-        if t.stride(3) != 1:
-            t = t.contiguous()
-            copied.append(name)
-        inputs.append(t)
-    q, k, v, o, g = inputs
+    variant = bwd_variant(q.dtype, d)
+    (q, k, v, o, g), st, copied = _bwd_inputs(
+        variant, (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)))
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         lse = lse.float().contiguous()
         copied.append("lse")
-    LAST_BWD_PLAN = {"grid_dkdv": [-(-s_k // KERNEL_BLOCK_K), b * h],
+    LAST_BWD_PLAN = {"variant": variant,
+                     "grid_dkdv": [-(-s_k // KERNEL_BLOCK_K), b * h],
                      "grid_dq": [-(-s_q // KERNEL_BLOCK_Q), b * h],
                      "copied": copied}
     fns = _bwd_kernels()
     dt = _KERNEL_DTYPES[q.dtype]
-    strides = [x for t in (q, k, v, g) for x in t.stride()[:3]]
+    strides = [x for i in (0, 1, 2, 4) for x in st[i]]  # q, k, v, g
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         delta = _launch_delta(o, g, stream)

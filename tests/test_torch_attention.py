@@ -6,9 +6,12 @@ port's flash attention (its plain versions: the tensors lie on the CPU), at
 the JAX suite's forward bar of 2e-3: the blockwise forward, and the split-KV
 forward with its merge, against ``_online_merge``.  The backward: the plain
 version against ``_flash_backward`` on the same o and lse at 1e-5 (the same
-algorithm in f32), and the port's autograd gradients against ``jax.grad``
-at the JAX suite's gradient bar of 5e-3.  The CUDA kernels themselves are
-checked against the plain versions on the card by chip_smoke.py.
+algorithm in f32) and, on bf16 inputs, within one bf16 ulp; the port's
+autograd gradients against ``jax.grad`` at the JAX suite's gradient bar of
+5e-3; which kernel variant each dtype and head dim takes, and that the
+training path's strided layouts reach the TMA kernels uncopied.  The CUDA
+kernels themselves are checked against the plain versions on the card by
+chip_smoke.py.
 """
 
 import numpy as np
@@ -282,35 +285,97 @@ def test_split_plan_covers_each_visible_tile_once(B, H, Sq, Sk, causal, qo,
      dict(causal=True, q_offset=64)),
     ("all_rows_dead", dict(b=1, s=64, d=16), dict(causal=True,
                                                   k_offset=1000)),
+    # bf16 at the head dims of the tensor-core kernels
+    ("causal_bf16", dict(b=1, s=128, d=64), dict(causal=True)),
+    ("unaligned_noncausal_bf16", dict(b=1, s=72, d=64), dict(causal=False)),
+    ("chunk_at_offset_bf16", dict(b=1, h=1, s=32, s_k=96, d=128),
+     dict(causal=True, q_offset=64)),
+    ("all_rows_dead_bf16", dict(b=1, s=64, d=64), dict(causal=True,
+                                                       k_offset=1000)),
 ])
 def test_flash_bwd_plain_matches_jax_flash_backward(name, shape, kw):
     q, k, v = _qkv(**shape)
     g = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    bf16 = name.endswith("_bf16")
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                else (jnp.float32, torch.float32))
+    # bf16 cases: the same bf16 values on both sides
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
     causal, qo, ko = kw["causal"], kw.get("q_offset", 0), kw.get("k_offset",
                                                                     0)
     scale = q.shape[-1] ** -0.5
-    o, lse = jattn._flash_forward(jnp.asarray(q), jnp.asarray(k),
-                                  jnp.asarray(v), causal, scale, qo, ko, 64,
-                                  64, interpret=True)
-    want = jattn._flash_backward(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), o, lse, jnp.asarray(g),
-                                 causal, scale, qo, ko, 64)
+    o, lse = jattn._flash_forward(jq, jk, jv, causal, scale, qo, ko, 64, 64,
+                                  interpret=True)
+    want = jattn._flash_backward(jq, jk, jv, o, lse, jg, causal, scale, qo,
+                                 ko, 64)
+
+    def port_inputs():
+        return (torch.from_numpy(np.array(a.astype(jnp.float32))).to(dt)
+                for a, dt in ((jq, tdt), (jk, tdt), (jv, tdt), (o, tdt),
+                              (lse, torch.float32), (jg, tdt)))
     got = tattn.flash_attention_bwd_plain(
-        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, g)),
-        causal=causal, sm_scale=scale, q_offset=qo, k_offset=ko, block_k=64)
+        *port_inputs(), causal=causal, sm_scale=scale, q_offset=qo,
+        k_offset=ko, block_k=64)
     for a, b in zip(got, want):
-        # the same blockwise algorithm in f32 on both sides
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
-                                   rtol=1e-5)
-    if name == "all_rows_dead":
+        assert a.dtype == tdt
+        b = np.asarray(b.astype(jnp.float32))
+        if bf16:
+            # both sides compute in f32 and round to bf16 once at the end:
+            # at most one bf16 ulp apart (2^-7 relative), plus 1e-5 for
+            # the f32 difference of two summation orders near zero
+            np.testing.assert_allclose(a.float().numpy(), b, atol=1e-5,
+                                       rtol=8e-3)
+        else:
+            # the same blockwise algorithm in f32 on both sides
+            np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=1e-5)
+    if name.startswith("all_rows_dead"):
         for a in got:
-            np.testing.assert_array_equal(a.numpy(), 0.0)
+            np.testing.assert_array_equal(a.float().numpy(), 0.0)
     # the wrapper takes the plain version for tensors on the CPU
     wrapped = tattn.flash_attention_bwd(
-        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, g)),
-        causal=causal, q_offset=qo, k_offset=ko, block_k=64)
+        *port_inputs(), causal=causal, q_offset=qo, k_offset=ko, block_k=64)
     for a, b in zip(wrapped, got):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_bwd_variant_by_dtype_and_head_dim(dtype, d, variant):
+    # tensor cores for bf16 at D 64/128; exact f32 FMA for the f32 bars
+    assert tattn.bwd_variant(dtype, d) == variant
+
+
+def test_training_layouts_need_no_copy_on_the_tma_path():
+    # GPT2LMModel at GPT-2-small width: q, k, v are (B, H, S, D) views of
+    # the fused (B, S, 3E) projection, and the output gradient reaches the
+    # backward as the (B, H, S, D) view of a (B, S, H, D) tensor
+    B, S, H, D = 2, 64, 12, 64
+    qkv = torch.zeros(B, S, 3 * H * D, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
+               for t in qkv.split(H * D, dim=-1))
+    g = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    o = torch.zeros(B, H, S, D, dtype=torch.bfloat16)
+    for t in (q, k, v, g):
+        assert t.data_ptr() % 16 == 0
+        assert tattn._kernel_strides(t.shape, t.stride(), 2)[1]
+    variant = tattn.bwd_variant(q.dtype, D)
+    assert variant == "wgmma"
+    inputs, strides, copied = tattn._bwd_inputs(
+        variant, (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)))
+    assert copied == []
+    assert all(a is b for a, b in zip(inputs, (q, k, v, o, g)))
+    assert strides[0] == (S * 3 * H * D, D, 3 * H * D)
+    assert strides[4] == (S * H * D, D, H * D)
+    # a K whose rows are not 16-byte multiples is copied on this path only
+    odd = torch.zeros(B, H, S, D + 1, dtype=torch.bfloat16)[..., 1:]
+    _, _, copied = tattn._bwd_inputs("wgmma", (("k", odd),))
+    assert copied == ["k"]
+    _, _, copied = tattn._bwd_inputs("simt", (("k", odd),))
+    assert copied == []
 
 
 @pytest.mark.parametrize("shape,blocks", [
