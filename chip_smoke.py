@@ -15,16 +15,22 @@ Phases, each fatal on failure:
   3. forward kernels: each against its plain PyTorch version on the card at
      the shapes the serving path gives it (and the JAX suite's cases), with
      the plan it chose (variant, KV splits), times beside the plain version,
-     one library call and the card's bound; then the split-KV combine
-     kernel against its plain version at the serving decode's partials;
-  3b. backward kernels (delta, dK/dV, dQ) against flash_attention_bwd_plain
-     on the forward kernel's o and lse, at the training path's shape and
-     nine more cases: the variant each took (tensor cores for bf16 at D 64
-     and 128), nothing copied, each result repeated bit for bit; at the
-     training shape and at D = 128 the kernels' error against the f32
-     backward of f32 upcasts at most 1.5x that of autograd through bf16
-     mha_reference; device time in total and per kernel, the plain version,
-     the backward of scaled_dot_product_attention as the library
+     one library call and the card's bound; no case launches the combine
+     kernel, and every case with KV splits (merged by the launch's last
+     CTAs) gives o and lse bit for bit equal to the standalone combine
+     kernel's on the very partials that launch merged, and to a repeat;
+     then the standalone combine kernel against its plain version at the
+     serving decode's partials;
+  3b. backward kernels (dQ, which also writes delta, then dK/dV) against
+     flash_attention_bwd_plain on the forward kernel's o and lse, at the
+     training path's shape and nine more cases: the variant each took
+     (tensor cores for bf16 at D 64 and 128), nothing copied, each result
+     repeated bit for bit, the delta dQ wrote bit for bit the standalone
+     delta kernel's, no delta launch; at the training shape and at D = 128
+     the kernels' error against the f32 backward of f32 upcasts at most
+     1.5x that of autograd through bf16 mha_reference; device time in total
+     and per kernel (the standalone delta kernel on its own), the plain
+     version, the backward of scaled_dot_product_attention as the library
      yardstick, and the bound;
   4. model: full-width GPT-2-small logits, flash against reference
      attention, in f32 and at the model's default bf16; then the serving
@@ -32,13 +38,14 @@ Phases, each fatal on failure:
   5. serving (a main path): EngineCore at GPT-2-small width serves 8
      greedy requests with chunked prefill; every kernel launch counter is
      set to 0 just before and read just after, and the forward kernels must
-     have run (flash_fwd once per attention call, flash_fwd_combine for the
-     split launches);
+     have run (flash_fwd once per attention call, split launches merging in
+     the kernel, flash_fwd_combine never);
   6. training (a main path): ShardedPretrainer takes 10 steps of
      GPT-2-small (bf16, flash, no remat) at batch 16 x 1024 on one seeded
      batch; losses finite and falling; every counter set to 0 just before
-     and read just after (flash_fwd and each backward kernel 12 per step,
-     no combine); step time, tokens/s, peak memory, MFU, a traced step;
+     and read just after (flash_fwd, dK/dV and dQ 12 per step, delta in
+     every dQ launch, no combine or delta launch); step time, tokens/s,
+     peak memory, MFU, a traced step;
      then loss parity against reference attention in bf16 (3 steps at
      batch 4) and in f32 (one step, loss and gradient norm);
   7. the kernels line, then the card line, then the result line.
@@ -225,6 +232,8 @@ def attention_cases(card):
         if name in MISALIGNED_CASES and plan["copied"] != ["k", "v"]:
             raise AssertionError(f"{name}: misaligned K/V were not copied "
                                  f"({plan})")
+        if plan["num_splits"] > 1:
+            _fused_matches_combine(name, q, k, v, kw, o, lse, plan)
 
         mask = None
         if causal:
@@ -245,8 +254,11 @@ def attention_cases(card):
             if key:
                 times[key + "ms"] = _device_ms(fn)
             else:
-                times["ms"], times["combine_ms"] = _device_ms(
+                times["ms"], combine_ms = _device_ms(
                     fn, part="flash_fwd_combine")
+                if combine_ms:
+                    raise AssertionError(f"{name}: the forward launched the "
+                                         f"combine kernel")
             times[key + "call_ms"] = _time_ms(fn)
         ms, plain_ms, library_ms = (times["ms"], times["plain_ms"],
                                     times["library_ms"])
@@ -267,14 +279,39 @@ def attention_cases(card):
         print(f"[kernel] flash_fwd {name}: plan variant={plan['variant']} "
               f"splits={plan['num_splits']} grid={plan['grid']} "
               f"copied={plan['copied']}; max_abs_err={err:.3e} "
-              f"(atol={tol[0]}, rtol={tol[1]}) ms={ms:.4f} "
-              f"(combine {times['combine_ms']:.4f}) "
-              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={rows[-1]['bound_ms']:.5f} "
+              f"(atol={tol[0]}, rtol={tol[1]})"
+              + (" merged in-kernel, bitwise the combine kernel's"
+                 if plan["num_splits"] > 1 else "")
+              + f"; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{library_ms:.4f} bound_ms={rows[-1]['bound_ms']:.5f} "
               f"({rows[-1]['bound_by']}); per call on the stream: kernel "
               f"{times['call_ms']:.4f} plain {times['plain_call_ms']:.4f} "
               f"library {times['library_call_ms']:.4f}", flush=True)
     return rows
+
+
+def _fused_matches_combine(name, q, k, v, kw, o, lse, plan):
+    """A split launch's o and lse, merged by its last CTAs, against the
+    standalone combine kernel run on the very partials that launch merged:
+    bit for bit; and against the case's first launch (``o``, ``lse``): a
+    repeat gives the same bits."""
+    from ray_tpu_torch.ops import attention as tattn
+
+    o1, lse1, part = tattn._flash_fwd_cuda(
+        q, k, v, kw["causal"], float(q.shape[-1] ** -0.5), kw["q_offset"],
+        kw["k_offset"], partials=True)
+    if tattn.LAST_PLAN != plan or part is None:
+        raise AssertionError(f"{name}: the helper took another plan: "
+                             f"{tattn.LAST_PLAN} against {plan}")
+    o2, lse2 = tattn.flash_fwd_combine(*part, dtype=q.dtype)
+    torch.cuda.synchronize()
+    if not (torch.equal(o1, o2) and torch.equal(lse1, lse2)):
+        raise AssertionError(
+            f"{name}: the in-kernel merge differs from the combine kernel on "
+            f"the same partials: o {(o1.float() - o2.float()).abs().max()}, "
+            f"lse {(lse1 - lse2).abs().max()}")
+    if not (torch.equal(o1, o) and torch.equal(lse1, lse)):
+        raise AssertionError(f"{name}: a second split launch gave other bits")
 
 
 # the serving decode's split-KV partials: 12 heads, 10 splits, one row
@@ -282,11 +319,15 @@ COMBINE_CASE = ("serve_decode_f32", torch.float32, 1, 12, 1, 600, 64, 599)
 
 
 def combine_case(card):
-    """The combine kernel against ``merge_partials_plain`` on the partials
-    that the serving decode produces, at the shapes the main path gives
-    it."""
+    """The standalone combine kernel against ``merge_partials_plain`` on
+    the partials that the serving decode produces, at the shapes the main
+    path gives it; then the split forward launch that merges in its last
+    CTAs, on the same q, k, v: its o against ``merge_partials_plain`` on
+    the partials it merged (the fused merge's error) and its time."""
+    from ray_tpu_torch.ops import attention as tattn
     from ray_tpu_torch.ops.attention import (
         KERNEL_BLOCK_K,
+        flash_attention_fwd,
         flash_attention_fwd_split_plain,
         flash_fwd_combine,
         merge_partials_plain,
@@ -314,14 +355,31 @@ def combine_case(card):
     nbytes = sum(t.numel() * 4 for t in part) + o.numel() * o.element_size() \
         + lse.numel() * 4
     bound_ms = nbytes / bw * 1e3
+
+    # the same merge in the split launch's last CTAs (bit for bit the
+    # combine kernel's: phase 3's split cases), against the plain merge of
+    # the partials that launch wrote
+    kw = dict(causal=True, q_offset=qo, k_offset=0)
+    o_f, lse_f, kpart = tattn._flash_fwd_cuda(q, k, v, True, D ** -0.5, qo, 0,
+                                              partials=True)
+    if tattn.LAST_PLAN["num_splits"] != splits:
+        raise AssertionError(f"the forward took {tattn.LAST_PLAN}, not "
+                             f"{splits} splits")
+    o_ref, lse_ref = merge_partials_plain(*kpart, dtype=dtype)
+    fused_err = _check_close("in-kernel merge", o_f, o_ref, F32_TOL)
+    _check_close("in-kernel merge lse", lse_f, lse_ref, F32_TOL)
+    fused_ms = _device_ms(lambda: flash_attention_fwd(q, k, v, **kw))
     print(f"[kernel] flash_fwd_combine {name} partials (B*H={B * H}, "
           f"splits={splits}, Sq={Sq}, D={D}): max_abs_err={err:.3e} "
           f"(atol={F32_TOL[0]}, rtol={F32_TOL[1]}) ms={ms:.5f} "
-          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes)",
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} (bytes); merged "
+          f"in the split launch: max_abs_err={fused_err:.3e} against the "
+          f"plain merge of its partials, split launch ms={fused_ms:.5f}",
           flush=True)
     return {"case": name, "splits": splits, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": None, "fused_max_abs_err": fused_err,
+            "fused_launch_ms": fused_ms}
 
 
 # ------------------------------------------------------------ phase 3b
@@ -355,7 +413,8 @@ def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
     of each kernel's function: every input read once, every output written
     once; 2*D flops per visible pair for each of S, dP, dV, dK and dQ that
     the function needs (the two-kernel design's recomputed S and dP are not
-    counted)."""
+    counted).  dQ computes delta too: it reads o and writes delta, and
+    dK/dV reads delta; the standalone delta kernel's own bound is beside."""
     q_bytes, k_bytes = B * H * Sq * D * esize, B * H * Sk * D * esize
     row_bytes = 4 * B * H * Sq  # lse or delta
     work = {  # bytes, flops
@@ -364,8 +423,8 @@ def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
         "flash_bwd_delta": (2 * q_bytes + row_bytes, 2 * D * B * H * Sq),
         "flash_bwd_dkdv": (2 * q_bytes + 2 * k_bytes + 2 * row_bytes
                            + 2 * k_bytes, 8 * D * pairs),
-        "flash_bwd_dq": (2 * q_bytes + 2 * k_bytes + 2 * row_bytes + q_bytes,
-                         6 * D * pairs),
+        "flash_bwd_dq": (3 * q_bytes + 2 * k_bytes + 2 * row_bytes + q_bytes,
+                         6 * D * pairs + 2 * D * B * H * Sq),
     }
     out = {}
     for key, (nbytes, flops) in work.items():
@@ -405,9 +464,10 @@ def _bf16_accuracy(name, q, k, v, o, lse, g, got, kw):
 
 
 def backward_cases(card):
-    """The three backward kernels against ``flash_attention_bwd_plain``
-    (and the delta kernel against ``flash_bwd_delta_plain``) on the forward
-    kernel's o and lse."""
+    """The backward's two launches (dQ with delta, then dK/dV) against
+    ``flash_attention_bwd_plain``, and the delta dQ wrote against the
+    standalone delta kernel (bit for bit) and ``flash_bwd_delta_plain``, on
+    the forward kernel's o and lse."""
     from ray_tpu_torch.ops import attention as tattn
     from ray_tpu_torch.ops.attention import (
         flash_attention_bwd,
@@ -437,15 +497,21 @@ def backward_cases(card):
         kw = dict(causal=causal, q_offset=qo, k_offset=ko)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         got = flash_attention_bwd(q, k, v, o, lse, g, **kw)
-        delta = flash_bwd_delta(o, g)
         torch.cuda.synchronize()
         plan = dict(tattn.LAST_BWD_PLAN)
-        again = flash_attention_bwd(q, k, v, o, lse, g, **kw)
-        delta_again = flash_bwd_delta(o, g)
+        *again, delta = tattn._flash_bwd_cuda(
+            q, k, v, o, lse, g, causal, float(D ** -0.5), qo, ko,
+            return_delta=True)
+        alone = flash_bwd_delta(o, g)
+        alone_again = flash_bwd_delta(o, g)
         torch.cuda.synchronize()
         if not (all(torch.equal(a, b) for a, b in zip(got, again))
-                and torch.equal(delta, delta_again)):
+                and torch.equal(alone, alone_again)):
             raise AssertionError(f"{name}: a second call gave other bits")
+        if not torch.equal(delta, alone):
+            raise AssertionError(
+                f"{name}: the delta dQ wrote differs from the delta kernel's "
+                f"by {(delta - alone).abs().max().item():.3e}")
         want = flash_attention_bwd_plain(q, k, v, o, lse, g, **kw)
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         errs = {key: _check_close(f"{name} {key}", a, b, tol)
@@ -488,6 +554,7 @@ def backward_cases(card):
             "library_": lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), g, retain_graph=True),
             "delta_plain_": lambda: flash_bwd_delta_plain(o, g),
+            "delta_kernel_": lambda: flash_bwd_delta(o, g),
         }
         times = {}
         for key, fn in fns.items():
@@ -497,11 +564,16 @@ def backward_cases(card):
             else:
                 times["ms"], times["kernel_ms"] = _device_ms(
                     fn, part=BWD_KERNELS)
+        kms = times["kernel_ms"]
+        if kms["flash_bwd_delta"]:
+            raise AssertionError(f"{name}: the backward launched the delta "
+                                 f"kernel")
+        # the delta kernel's time is its standalone launch's
+        kms["flash_bwd_delta"] = times["delta_kernel_ms"]
         pairs = B * H * _visible_pairs(Sq, Sk, causal, qo, ko)
         peak = f32_peak if dtype == torch.float32 else bf16_peak
         bounds = _bwd_bounds(B, H, Sq, Sk, D, q.element_size(), pairs, peak,
                              bw)
-        kms = times["kernel_ms"]
         rows.append({
             "case": name, "shape": [B, H, Sq, Sk, D],
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
@@ -524,10 +596,12 @@ def backward_cases(card):
               f"dkdv={plan['grid_dkdv']} dq={plan['grid_dq']} copied="
               f"{plan['copied']}; max_abs_err "
               + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
-              + f" (atol={tol[0]}, rtol={tol[1]}); repeat bitwise{acc_text}; "
-              f"ms={times['ms']:.5f} (delta {kms['flash_bwd_delta']:.5f}, "
-              f"dkdv {kms['flash_bwd_dkdv']:.5f}, dq "
-              f"{kms['flash_bwd_dq']:.5f}) plain_ms={times['plain_ms']:.4f} "
+              + f" (atol={tol[0]}, rtol={tol[1]}); repeat bitwise, delta "
+              f"from dQ bitwise the delta kernel's{acc_text}; "
+              f"ms={times['ms']:.5f} (dq with delta "
+              f"{kms['flash_bwd_dq']:.5f}, dkdv {kms['flash_bwd_dkdv']:.5f}; "
+              f"the delta kernel alone {kms['flash_bwd_delta']:.5f}) "
+              f"plain_ms={times['plain_ms']:.4f} "
               f"library_ms={times['library_ms']:.5f} bound_ms="
               f"{bounds['op'][0]:.5f} ({bounds['op'][1]}), ms/bound "
               f"{rows[-1]['ms_over_bound']:.2f}; per kernel bound "
@@ -720,16 +794,30 @@ def serving_workload():
     return cfg, lengths, prompts, SamplingParams(max_tokens=32), engine
 
 
-def serve(card_label):
-    from ray_tpu_torch.ops.attention import KERNEL_LAUNCHES
+def _zero_counts():
+    from ray_tpu_torch.ops.attention import FUSED_LAUNCHES, KERNEL_LAUNCHES
 
+    for counts in (KERNEL_LAUNCHES, FUSED_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def _read_counts() -> dict:
+    """Every kernel's launches, and as ``fused:<name>`` the launches of
+    another kernel that did that kernel's job inside it."""
+    from ray_tpu_torch.ops.attention import FUSED_LAUNCHES, KERNEL_LAUNCHES
+
+    return {**KERNEL_LAUNCHES,
+            **{"fused:" + k: n for k, n in FUSED_LAUNCHES.items()}}
+
+
+def serve(card_label):
     cfg, lengths, prompts, params, engine = serving_workload()
 
     def run(trace=False):
         core = engine()
         torch.cuda.synchronize()
-        for key in KERNEL_LAUNCHES:
-            KERNEL_LAUNCHES[key] = 0
+        _zero_counts()
         prof = None
         if trace:
             from torch.profiler import ProfilerActivity, profile
@@ -754,7 +842,7 @@ def serve(card_label):
                   f"flash_fwd_s={flash:.4f}; top kernels: "
                   + "; ".join(f"{k[:60]} {t:.4f}s" for k, t in top),
                   flush=True)
-        launches = dict(KERNEL_LAUNCHES)
+        launches = _read_counts()
         results = [core.result(r) for r in rids]
         for res in results:
             if res["state"] != "FINISHED" or len(res["tokens"]) != 32:
@@ -769,9 +857,10 @@ def serve(card_label):
             and calls % cfg.n_layer == 0):
         raise AssertionError(f"flash_fwd launches {launches} != attention "
                              f"calls {calls} (n_layer {cfg.n_layer})")
-    if not 0 < launches["flash_fwd_combine"] <= calls:
-        raise AssertionError(f"flash_fwd_combine launches {launches}: the "
-                             f"split-KV path did not run on the main path")
+    if launches["flash_fwd_combine"] or not (
+            0 < launches["fused:flash_fwd_combine"] <= calls):
+        raise AssertionError(f"launches {launches}: the split-KV path did "
+                             f"not run merged in the kernel on the main path")
     if any(launches[key] for key in BWD_KERNELS):
         raise AssertionError(f"the serving path launched backward kernels: "
                              f"{launches}")
@@ -786,8 +875,10 @@ def serve(card_label):
           f"ttft_median_s={ttft[len(ttft) // 2]:.4f} "
           f"ttft_max_s={ttft[-1]:.4f} flash_fwd_launches="
           f"{launches['flash_fwd']} (= {cfg.n_layer} layers x "
-          f"{calls // cfg.n_layer} sequence passes), flash_fwd_combine_"
-          f"launches={launches['flash_fwd_combine']} on {card_label}",
+          f"{calls // cfg.n_layer} sequence passes), split launches "
+          f"merged in-kernel={launches['fused:flash_fwd_combine']}, "
+          f"flash_fwd_combine_launches={launches['flash_fwd_combine']} on "
+          f"{card_label}",
           flush=True)
     print("[serve] deterministic: second run gave identical tokens; "
           "cache leak check passed", flush=True)
@@ -819,7 +910,6 @@ def train(card, card_label):
     import dataclasses
 
     from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
-    from ray_tpu_torch.ops.attention import KERNEL_LAUNCHES
 
     cfg = GPT2Config(remat=False)
     trainer = ShardedPretrainer(cfg)
@@ -827,8 +917,7 @@ def train(card, card_label):
     n_params = sum(p.numel() for p in trainer.model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[key] = 0
+    _zero_counts()
     losses, t_start = [], None
     for i in range(TRAIN_STEPS):
         if i == 2:  # steps 0 and 1 warm cuBLAS and the allocator
@@ -837,15 +926,17 @@ def train(card, card_label):
         losses.append(trainer.step(batch))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t_start) / (TRAIN_STEPS - 2)
-    launches = dict(KERNEL_LAUNCHES)
+    launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [t.item() for t in losses]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
     calls = cfg.n_layer * TRAIN_STEPS
-    want = {"flash_fwd": calls, "flash_fwd_combine": 0,
-            **{key: calls for key in BWD_KERNELS}}
+    # every dQ launch computes delta; no launch splits the KV axis
+    want = {"flash_fwd": calls, "flash_fwd_combine": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkdv": calls, "flash_bwd_dq": calls,
+            "fused:flash_fwd_combine": 0, "fused:flash_bwd_delta": calls}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{want}")
@@ -989,6 +1080,16 @@ def main() -> int:
                 "launches_by_path": {"serve": serve_launches[key],
                                      "train": train_launches[key]}}
 
+    def fused(key, into, err):
+        """A kernel whose job another kernel does on the main paths: which
+        one, its launches that did it, and the error of the job done
+        there."""
+        fkey = "fused:" + key
+        return {"fused_into": into,
+                "fused_launches_by_path": {"serve": serve_launches[fkey],
+                                           "train": train_launches[fkey]},
+                "fused_max_abs_err": err}
+
     main_row = next(r for r in rows if r["case"] == MAIN_PATH_CASE)
     kernel = {
         "name": "flash_fwd", "route": "cuda",
@@ -1008,7 +1109,9 @@ def main() -> int:
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         "shape": combine_row["case"], "splits": combine_row["splits"],
-        "pass": True,
+        **fused("flash_fwd_combine", "flash_fwd",
+                combine_row["fused_max_abs_err"]),
+        "fused_launch_ms": combine_row["fused_launch_ms"], "pass": True,
     }
     train_row = next(r for r in bwd_rows if r["case"] == TRAIN_CASE)
     errs = train_row["max_abs_err"]
@@ -1018,7 +1121,9 @@ def main() -> int:
                       ("flash_bwd_dq", errs["dq"])):
         bound, bound_by = train_row["kernel_bounds"][name]
         delta = name == "flash_bwd_delta"
-        extra = {} if delta else {
+        # delta's error is that of the delta dQ wrote, bit for bit the
+        # standalone kernel's (phase 3b)
+        extra = fused(name, "flash_bwd_dq", err) if delta else {
             "variant": train_row["plan"]["variant"],
             "ptxas": ptxas.get(f"{name}_{train_row['plan']['variant']}<64>")}
         backward.append({

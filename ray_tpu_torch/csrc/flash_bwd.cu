@@ -2,22 +2,32 @@
 //
 // Replaces `_flash_backward` (ray_tpu/ops/attention.py:189-247), the
 // custom_vjp backward of the Pallas forward kernel (:251-273).  There it is
-// an XLA `lax.scan` over KV blocks that carries dq; here it is three kernels,
+// an XLA `lax.scan` over KV blocks that carries dq; here it is two kernels,
 // launched in this order on one stream:
 //
-//  * flash_bwd_delta: delta[b,h,i] = sum_d o*g in f32 (o and g widened from
-//    the input type), one row per warp.
+//  * dQ: grid (ceil(Sq/64), B*H).  A CTA owns a 64-row query tile.  In its
+//    prologue, while its first tile loads are in flight, it computes delta
+//    = rowsum(o*g) in f32 for its rows (o and g widened from the input
+//    type, read straight from global memory, a warp a row, the loads of
+//    many rows in flight before any sum), keeps it for its own dS and writes
+//    it to a (B*H, Sq) f32 buffer for dK/dV.  It then
+//    walks exactly the KV tiles its rows can see (the causal arithmetic of
+//    the forward's visible_tiles, with q_offset and k_offset), recomputes
+//    S and dP, masks keys >= Sk, causal pairs and dead rows (lse <= -5e29
+//    gives P = 0), takes P = exp(S*scale - lse), dS = P * (dP - delta), and
+//    accumulates dQ += dS K; the epilogue multiplies by sm_scale.
 //  * dK/dV: grid (ceil(Sk/64), B*H).  A CTA owns one 64-key tile and walks
 //    the 64-row query tiles from the first one whose last row can see the
-//    tile's first key (the causal arithmetic of the forward's visible_tiles,
-//    with q_offset and k_offset).  Per query tile it recomputes S and dP,
-//    masks keys >= Sk, causal pairs and dead rows (lse <= -5e29 gives
-//    P = 0), takes P = exp(S*scale - lse), dS = P * (dP - delta), and
-//    accumulates dV += P^T g and dK += dS^T q; dK takes sm_scale at the end.
-//  * dQ: grid (ceil(Sq/64), B*H).  A CTA owns a 64-row query tile and its
-//    lse and delta, walks exactly the KV tiles its rows can see, recomputes
-//    S, P, dP and dS as above, and accumulates dQ += dS K; the epilogue
-//    multiplies by sm_scale.
+//    tile's first key, with the lse and the delta (written by dQ; stream
+//    order makes it visible) of their rows; per query tile it recomputes S
+//    and dP, masks as above, and accumulates dV += P^T g and dK += dS^T q;
+//    dK takes sm_scale at the end.
+//
+// delta is RowShare::dot, the very function of the standalone
+// flash_bwd_delta kernel (kept for callers that want delta alone): one warp
+// per row, lane c summing columns c, c+32, ... by fmaf from 0, then a
+// butterfly 16..1, so the delta dQ writes is bit for bit that kernel's,
+// and dq, dk, dv are what a separate delta launch would give.
 //
 // No atomics.  A dQ summed by atomics from the dK/dV CTAs would save the
 // second pass, but its summation order would change from run to run; with
@@ -47,8 +57,8 @@
 //    is not a power of two), and P = exp2(S*scale*log2(e) - lse*log2(e)).
 //    The rounding this variant adds: P and dS go to bf16 (8 significant
 //    bits) before the dV, dK and dQ products; S, dP and every accumulation
-//    are f32.  Warp specialisation, ping-pong between two warpgroups,
-//    setmaxnreg and a fused delta are later work.
+//    are f32.  Warp specialisation, ping-pong between two warpgroups and
+//    setmaxnreg are later work.
 //  * *_simt (f32, and bf16 with D 16 or 32): exact f32 FMA on the CUDA
 //    cores (the f32 parity bars are 1e-5): bf16 widened on load, all tiles
 //    in shared memory as f32, 256 threads each owning a 4 x 4 block of the
@@ -70,7 +80,10 @@
 // (989 TFLOP/s), and 14*D is 90.3 GFLOP, 0.091 ms; the bytes (q, k, v, o,
 // g and lse read once, dq, dk, dv written once, 0.20 GB) take 0.060 ms at
 // 3.35 TB/s.  So it is bound by operations, on the tensor cores only: the
-// CUDA cores' f32 rate (67 TFLOP/s) would put the floor at 0.96 ms.
+// CUDA cores' f32 rate (67 TFLOP/s) would put the floor at 0.96 ms.  The
+// dQ kernel's own bytes are q, g, o, k, v and lse read once, delta and dq
+// written once: o and delta add 25.2 MB and 0.8 MB to what it moved with a
+// separate delta pass, 7.8 us at 3.35 TB/s if none of it hides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,14 +107,15 @@ struct Params {
   const void* k;
   const void* v;
   const void* g;
+  const void* o;       // read by dQ only, for delta
   const float* lse;    // (B*H, Sq)
-  const float* delta;  // (B*H, Sq)
+  float* delta;        // (B*H, Sq): written by dQ, read by dK/dV
   void* dq;            // (B*H, Sq, D), contiguous
   void* dk;            // (B*H, Sk, D), contiguous
   void* dv;            // (B*H, Sk, D), contiguous
   int H, Sq, Sk;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, g_sb, g_sh,
-      g_ss;
+      g_ss, o_sb, o_sh, o_ss;
   float sm_scale;
   int causal, q_offset, k_offset;
 };
@@ -229,13 +243,84 @@ __device__ __forceinline__ void load_row_stats(const Params& p, int bh,
   }
 }
 
-// ========================================================== delta kernel
-constexpr int DELTA_ROWS = NT / 32;  // one warp per row
+// ================================================================ delta
+// One lane's share of a row of o and g, widened to f32: columns lane,
+// lane + 32, ... (zeros past D, or for a row that is not there).
+template <typename T, int D>
+struct RowShare {
+  static constexpr int PER = (D + 31) / 32;
+  float o[PER], g[PER];
 
-template <typename T>
+  __device__ __forceinline__ void load(const T* orow, const T* grow, bool in,
+                                       int lane) {
+#pragma unroll
+    for (int x = 0; x < PER; ++x) {
+      const int c = lane + 32 * x;
+      const bool ok = in && c < D;
+      o[x] = ok ? to_f32(orow[c]) : 0.f;
+      g[x] = ok ? to_f32(grow[c]) : 0.f;
+    }
+  }
+
+  // rowsum(o*g) in f32, in every lane of the warp: lane c accumulates its
+  // columns c, c+32, ... by fmaf from 0, then a butterfly 16..1.  The
+  // standalone delta kernel and the dQ kernels sum alike, so the delta
+  // each writes is bit for bit the other's.
+  __device__ __forceinline__ float dot(int lane) const {
+    float acc = 0.f;
+#pragma unroll
+    for (int x = 0; x < PER; ++x)
+      if (lane + 32 * x < D) acc = fmaf(o[x], g[x], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return acc;
+  }
+};
+
+// The dQ kernels' prologue: delta of the query tile's rows [q0, q0 + 64)
+// into sDelta (0 past Sq) and, for the rows below Sq, into p.delta for
+// dK/dV.  NW warps, warp w taking rows w, w + NW, ...; each warp starts the
+// loads of RC rows before it sums any, so a tile costs one or two memory
+// round trips (o is cold in L2 after the forward), not one a row.
+template <typename T, int D, int NW>
+__device__ __forceinline__ void tile_delta(const Params& p, int bh, int q0,
+                                           float* sDelta) {
+  constexpr int RPW = BQ / NW;                          // rows per warp
+  constexpr int RC = RPW < 1024 / D ? RPW : 1024 / D;  // 64 floats a lane
+  const int b = bh / p.H, h = bh % p.H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* op = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const T* gp = static_cast<const T*>(p.g) + b * p.g_sb + h * p.g_sh;
+#pragma unroll
+  for (int j0 = 0; j0 < RPW; j0 += RC) {
+    RowShare<T, D> share[RC];
+#pragma unroll
+    for (int j = 0; j < RC; ++j) {
+      const int qi = q0 + warp + NW * (j0 + j);
+      share[j].load(op + (int64_t)qi * p.o_ss, gp + (int64_t)qi * p.g_ss,
+                    qi < p.Sq, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < RC; ++j) {
+      const int r = warp + NW * (j0 + j), qi = q0 + r;
+      const float d = share[j].dot(lane);
+      if (lane == 0) {
+        sDelta[r] = qi < p.Sq ? d : 0.f;
+        if (qi < p.Sq) p.delta[(int64_t)bh * p.Sq + qi] = d;
+      }
+    }
+  }
+}
+
+// The standalone delta kernel, one warp per row; the backward itself takes
+// delta from the dQ kernel's prologue.
+constexpr int DELTA_ROWS = NT / 32;
+
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
-                float* __restrict__ delta, int H, int Sq, int D, int rows,
+                float* __restrict__ delta, int H, int Sq, int rows,
                 int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t g_sb,
                 int64_t g_sh, int64_t g_ss) {
   const int row = blockIdx.x * DELTA_ROWS + threadIdx.x / 32;
@@ -243,14 +328,10 @@ flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ g,
   if (row >= rows) return;
   const int bh = row / Sq, i = row % Sq;
   const int b = bh / H, h = bh % H;
-  const T* orow = o + b * o_sb + h * o_sh + (int64_t)i * o_ss;
-  const T* grow = g + b * g_sb + h * g_sh + (int64_t)i * g_ss;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f32(orow[c]), to_f32(grow[c]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  RowShare<T, D> share;
+  share.load(o + b * o_sb + h * o_sh + (int64_t)i * o_ss,
+             g + b * g_sb + h * g_sh + (int64_t)i * g_ss, true, lane);
+  const float acc = share.dot(lane);
   if (lane == 0) delta[row] = acc;
 }
 
@@ -386,7 +467,9 @@ flash_bwd_dq_simt(const Params p) {
 
   load_tile<T, D>(sQ, qp, p.q_ss, q0, p.Sq, p.sm_scale);
   load_tile<T, D>(sG, gp, p.g_ss, q0, p.Sq, 1.f);
-  load_row_stats(p, bh, q0, sL, sD);
+  if (tid < BQ)
+    sL[tid] = q0 + tid < p.Sq ? p.lse[(int64_t)bh * p.Sq + q0 + tid] : NEG_INF;
+  tile_delta<T, D, NT / 32>(p, bh, q0, sD);  // for every row, seen or not
   const int n = visible_kv_tiles(p, q0);
 
   // dQ rows 4*ty + i of this query tile, columns tx + 16*c
@@ -708,6 +791,10 @@ flash_bwd_dq_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     }
     for (int it = 0; it < min(n, WG_STAGES); ++it) issue_kv(it);
   }
+  // delta of every row of the tile, seen or not, while the loads fly
+  __shared__ __align__(16) float sDelta[BQ];
+  tile_delta<__nv_bfloat16, D, WG_NT / 32>(p, bh, q0, sDelta);
+  __syncthreads();
 
   // this thread's query rows r0 and r0 + 8; register 4c + e holds key (for
   // S, dP) or head-dim index (for dQ) 8c + 2*(lane % 4) + (e & 1) of row
@@ -716,8 +803,7 @@ flash_bwd_dq_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   const int cq = 2 * (lane % 4);
   const float scale2 = p.sm_scale * LOG2E;
   const float l2[2] = {row_lse2(p, bh, q0 + r0), row_lse2(p, bh, q0 + r0 + 8)};
-  const float dl[2] = {row_delta(p, bh, q0 + r0),
-                       row_delta(p, bh, q0 + r0 + 8)};
+  const float dl[2] = {sDelta[r0], sDelta[r0 + 8]};
   float dq[NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i) dq[i] = 0.f;
@@ -846,23 +932,42 @@ int dispatch(bool dkdv, int dtype, int D, const Params& p, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_delta(const void* o, const void* g, void* delta, int H, int Sq,
+                 int D, int rows, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                 int64_t g_sb, int64_t g_sh, int64_t g_ss, cudaStream_t s) {
+  const dim3 grid((rows + DELTA_ROWS - 1) / DELTA_ROWS);
+  const T* op = static_cast<const T*>(o);
+  const T* gp = static_cast<const T*>(g);
+  float* out = static_cast<float*>(delta);
+  switch (D) {
+    case 16: flash_bwd_delta<T, 16><<<grid, NT, 0, s>>>(op, gp, out, H, Sq, rows, o_sb, o_sh, o_ss, g_sb, g_sh, g_ss); break;
+    case 32: flash_bwd_delta<T, 32><<<grid, NT, 0, s>>>(op, gp, out, H, Sq, rows, o_sb, o_sh, o_ss, g_sb, g_sh, g_ss); break;
+    case 64: flash_bwd_delta<T, 64><<<grid, NT, 0, s>>>(op, gp, out, H, Sq, rows, o_sb, o_sh, o_ss, g_sb, g_sh, g_ss); break;
+    case 128: flash_bwd_delta<T, 128><<<grid, NT, 0, s>>>(op, gp, out, H, Sq, rows, o_sb, o_sh, o_ss, g_sb, g_sh, g_ss); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 int run(bool dkdv, const void* q, const void* k, const void* v, const void* g,
-        const void* lse, const void* delta, void* dq, void* dk, void* dv,
-        int dtype, int B, int H, int Sq, int Sk, int D, int64_t q_sb,
-        int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-        int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t g_sb, int64_t g_sh,
-        int64_t g_ss, float sm_scale, int causal, int q_offset, int k_offset,
-        void* stream) {
+        const void* o, const void* lse, void* delta, void* dq, void* dk,
+        void* dv, int dtype, int B, int H, int Sq, int Sk, int D,
+        int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
+        int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t g_sb,
+        int64_t g_sh, int64_t g_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+        float sm_scale, int causal, int q_offset, int k_offset, void* stream) {
   Params p;
-  p.q = q; p.k = k; p.v = v; p.g = g;
+  p.q = q; p.k = k; p.v = v; p.g = g; p.o = o;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.H = H; p.Sq = Sq; p.Sk = Sk;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.g_sb = g_sb; p.g_sh = g_sh; p.g_ss = g_ss;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.sm_scale = sm_scale; p.causal = causal;
   p.q_offset = q_offset; p.k_offset = k_offset;
   if (B < 1 || H < 1 || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
@@ -871,9 +976,11 @@ int run(bool dkdv, const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  delta (B*H*Sq, f32) = rowsum(o * g);
-// strides in elements for the batch, head and sequence dims (the head dim
-// contiguous).  Returns cudaGetLastError() after the launch, 0 on success.
+// The standalone delta kernel (the backward takes delta from its dQ launch).
+// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}.  delta
+// (B*H*Sq, f32) = rowsum(o * g); strides in elements for the batch, head
+// and sequence dims (the head dim contiguous).  Returns cudaGetLastError()
+// after the launch, 0 on success.
 extern "C" int ray_flash_bwd_delta(const void* o, const void* g, void* delta,
                                    int dtype, int B, int H, int Sq, int D,
                                    int64_t o_sb, int64_t o_sh, int64_t o_ss,
@@ -881,52 +988,55 @@ extern "C" int ray_flash_bwd_delta(const void* o, const void* g, void* delta,
                                    void* stream) {
   const int rows = B * H * Sq;
   if (rows < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((rows + DELTA_ROWS - 1) / DELTA_ROWS);
-  float* out = static_cast<float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    flash_bwd_delta<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(g), out, H, Sq,
-        D, rows, o_sb, o_sh, o_ss, g_sb, g_sh, g_ss);
-  } else if (dtype == 1) {
-    flash_bwd_delta<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(g), out, H, Sq, D, rows, o_sb, o_sh,
-        o_ss, g_sb, g_sh, g_ss);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_delta<float>(o, g, delta, H, Sq, D, rows, o_sb, o_sh, o_ss,
+                               g_sb, g_sh, g_ss,
+                               static_cast<cudaStream_t>(stream));
+  if (dtype == 1)
+    return launch_delta<__nv_bfloat16>(o, g, delta, H, Sq, D, rows, o_sb,
+                                       o_sh, o_ss, g_sb, g_sh, g_ss,
+                                       static_cast<cudaStream_t>(stream));
+  return (int)cudaErrorInvalidValue;
 }
 
-// dK and dV (B*H, Sk, D) in the input type from q, k, v, g (strided), lse
-// and delta (f32, (B*H, Sq)).  dq is not touched.  bf16 with D 64 or 128
-// takes the tensor-core kernel, whose TMA maps need every base and stride of
-// q, k, v, g 16-byte aligned; a refused map returns 10000 + its CUresult.
-extern "C" int ray_flash_bwd_dkdv(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    int dtype, int B, int H, int Sq, int Sk, int D, int64_t q_sb,
-    int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t g_sb, int64_t g_sh,
-    int64_t g_ss, float sm_scale, int causal, int q_offset, int k_offset,
-    void* stream) {
-  return run(true, q, k, v, g, lse, delta, dq, dk, dv, dtype, B, H, Sq, Sk, D,
-             q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, g_sb, g_sh,
-             g_ss, sm_scale, causal, q_offset, k_offset, stream);
-}
+// The backward is two launches on one stream: ray_flash_bwd_dq first, which
+// also writes delta, then ray_flash_bwd_dkdv, which reads it.  Both take the
+// same arguments.  dtype: 0 = float32, 1 = bfloat16.  q, k, v, g and o are
+// strided (strides in elements for the batch, head and sequence dims, the
+// head dim contiguous); lse is f32 (B*H, Sq), delta an f32 (B*H, Sq)
+// buffer.  bf16 with D 64 or 128 takes the tensor-core kernels, whose TMA
+// maps need every base and stride of q, k, v, g 16-byte aligned (o is read
+// without TMA); a refused map returns 10000 + its CUresult.  Otherwise the
+// entries return cudaGetLastError() after the launch, 0 on success.
 
-// dQ (B*H, Sq, D) in the input type; the same arguments and variants as
-// ray_flash_bwd_dkdv, of which dk and dv are not touched.
+// dQ (B*H, Sq, D) in the input type, and delta = rowsum(o * g) of every
+// row; o is read, dk and dv are not touched.
 extern "C" int ray_flash_bwd_dq(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    int dtype, int B, int H, int Sq, int Sk, int D, int64_t q_sb,
-    int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t g_sb, int64_t g_sh,
-    int64_t g_ss, float sm_scale, int causal, int q_offset, int k_offset,
-    void* stream) {
-  return run(false, q, k, v, g, lse, delta, dq, dk, dv, dtype, B, H, Sq, Sk,
-             D, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, g_sb,
-             g_sh, g_ss, sm_scale, causal, q_offset, k_offset, stream);
+    const void* q, const void* k, const void* v, const void* g, const void* o,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int dtype,
+    int B, int H, int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh,
+    int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
+    int64_t v_sh, int64_t v_ss, int64_t g_sb, int64_t g_sh, int64_t g_ss,
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int causal,
+    int q_offset, int k_offset, void* stream) {
+  return run(false, q, k, v, g, o, lse, delta, dq, dk, dv, dtype, B, H, Sq,
+             Sk, D, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, g_sb,
+             g_sh, g_ss, o_sb, o_sh, o_ss, sm_scale, causal, q_offset,
+             k_offset, stream);
+}
+
+// dK and dV (B*H, Sk, D) in the input type, from delta as the dQ launch
+// wrote it; o and dq are not touched.
+extern "C" int ray_flash_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* g, const void* o,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int dtype,
+    int B, int H, int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh,
+    int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
+    int64_t v_sh, int64_t v_ss, int64_t g_sb, int64_t g_sh, int64_t g_ss,
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int causal,
+    int q_offset, int k_offset, void* stream) {
+  return run(true, q, k, v, g, o, lse, delta, dq, dk, dv, dtype, B, H, Sq,
+             Sk, D, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, g_sb,
+             g_sh, g_ss, o_sb, o_sh, o_ss, sm_scale, causal, q_offset,
+             k_offset, stream);
 }

@@ -64,9 +64,25 @@
 //    visible KV tiles of each query tile into `num_splits` contiguous runs.
 //    CTA (q tile, b*h, split) walks its run and writes un-normalised f32
 //    partials (m, l, acc); an empty or fully masked run writes m = -1e30,
-//    l = 0.  flash_fwd_combine then merges the splits of each row in a
-//    fixed order (no atomics, so results repeat run to run) and writes o and
-//    lse.  With one split the kernels write o and lse themselves.
+//    l = 0.  The merge happens in the same launch, by a serial fix-up: each
+//    split CTA, once its partials are written, meets at a barrier and
+//    thread 0 bumps an int32 counter of its (q tile, b*h) with one acq_rel
+//    atomic at GPU scope; the CTA that sees splits - 1 is the last, reads
+//    every split's partials of its rows through L2 (__ldcg: L1 is not
+//    coherent across SMs), merges them in the fixed order 0..splits-1 with
+//    all its threads (merge_rows: a warp a row for the weights, a thread an
+//    element for o) and writes o and lse, and sets the counter back to 0
+//    for the next launch.  No CTA waits for another, so the splits need not
+//    be co-resident.  merge_rows is the very function the standalone
+//    flash_fwd_combine kernel runs, so o and lse are bit for bit the
+//    combine kernel's on the same partials, whichever split arrives last,
+//    and repeat run to run.  The wrapper keeps one zeroed buffer of num_sms
+//    counters per (device, stream): splits are taken only when the tiles
+//    are fewer than the SMs.
+//    Thread-block clusters with DSMEM are not used: a cluster holds at most
+//    8 portable (16 non-portable) CTAs, and the serving decode's 10 splits
+//    of a head would not fit one.  With one split the kernels write o and
+//    lse themselves.
 //
 // Ragged Sq and Sk edges are masked (TMA fills out-of-range rows with zeros,
 // cp.async zero-fills them), so the wrapper pads nothing.
@@ -95,6 +111,7 @@ struct Params {
   float* part_acc;  // (B*H, splits, Sq, D), un-normalised
   float* part_m;    // (B*H, splits, Sq)
   float* part_l;    // (B*H, splits, Sq)
+  int* counters;    // splits done, one per (q tile, b*h); 0 between launches
   int H, Sq, Sk, num_splits;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   float sm_scale;
@@ -171,6 +188,180 @@ __device__ __forceinline__ void store_stats(const Params& p, int bh, int qi,
     p.part_m[r] = l == 0.f ? NEG_INF : m;
     p.part_l[r] = l;
   }
+}
+
+// Shared memory merge_rows needs for n rows: the weights, then 1/l.
+constexpr int MAX_SPLITS = 32;  // ops/attention.py MAX_SPLITS
+__host__ __device__ constexpr int merge_floats(int n) {
+  return n * MAX_SPLITS + n;
+}
+
+// Merge of the splits of the rows [row0, row0 + n) (row = b*h*Sq + qi, at
+// most ROWS of them) into o and lse by the CTA's NT threads, in the fixed
+// order 0..splits-1.  First the weights, a warp to every NT/32-th row, all
+// its rows at once: lane s reads split s's m and l, the row max is a
+// butterfly of fmaxf (exact, so any order gives it), lane s puts the
+// weight exp(m_s - max) into sW, and l is summed over the splits in order
+// by fmaf (every lane alike, from shuffles).  Then o, a thread to groups of
+// four columns: for each split in order, acc = fmaf(partial, weight, acc).
+// The loads never wait on a sum: a thread starts those of GC groups and U
+// splits (16 float4 at 128 threads, 8 at 256) before it adds any, so the
+// merge costs a few L2 round trips, not one per row or per split.  Partials
+// are read through L2 (__ldcg): in the fused merge other SMs wrote them in
+// this launch, and L1 is not coherent across SMs.  flash_fwd_combine and
+// the split kernels' last CTA both run this function, and every element's
+// sums are the same operations in the same order whatever the ROWS, NT or
+// grouping, so their o and lse agree bit for bit.  sW holds n * splits
+// floats and sInv n; splits <= MAX_SPLITS = 32; part_acc 16-byte aligned.
+template <typename T, int D, int NT, int ROWS>
+__device__ __forceinline__ void merge_rows(const float* part_acc,
+                                           const float* part_m,
+                                           const float* part_l, T* o,
+                                           float* lse, int row0, int n,
+                                           int Sq, int splits, float* sW,
+                                           float* sInv) {
+  constexpr int NW = NT / 32;
+  constexpr int RA = (ROWS + NW - 1) / NW;  // rows a warp weighs, <= 32
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const bool in = lane < splits;
+  // all of a warp's rows at once, so that their loads, shuffles and
+  // arithmetic overlap; a row past n reads nothing and writes nothing
+  float m[RA], l[RA], mx[RA], lsum[RA];
+#pragma unroll
+  for (int j = 0; j < RA; ++j) {
+    const int r = warp + NW * j, row = row0 + r;
+    const int64_t at = ((int64_t)(row / Sq) * splits + lane) * Sq + row % Sq;
+    m[j] = in && r < n ? __ldcg(part_m + at) : NEG_INF;
+    l[j] = in && r < n ? __ldcg(part_l + at) : 0.f;
+    mx[j] = m[j];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < RA; ++j)
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], off));
+#pragma unroll
+  for (int j = 0; j < RA; ++j) {
+    const int r = warp + NW * j;
+    m[j] = in ? expf(m[j] - mx[j]) : 0.f;  // now the weight
+    if (in && r < n) sW[r * splits + lane] = m[j];
+    lsum[j] = 0.f;
+  }
+  for (int s = 0; s < splits; ++s)
+#pragma unroll
+    for (int j = 0; j < RA; ++j)
+      lsum[j] = fmaf(__shfl_sync(0xffffffffu, l[j], s),
+                     __shfl_sync(0xffffffffu, m[j], s), lsum[j]);
+  // every lane holds every row's sum: lane j finishes row j
+  float my_l = 0.f, my_mx = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < RA; ++j)
+    if (lane == j) {
+      my_l = lsum[j];
+      my_mx = mx[j];
+    }
+  const int r_own = warp + NW * lane;
+  if (lane < RA && r_own < n) {
+    sInv[r_own] = my_l == 0.f ? 0.f : 1.f / my_l;
+    lse[row0 + r_own] = my_l == 0.f ? NEG_INF : my_mx + logf(my_l);
+  }
+  __syncthreads();
+
+  constexpr int DG = D / 4;                       // 4-column groups a row
+  constexpr int GT = (ROWS * DG + NT - 1) / NT;   // groups a thread, at most
+  constexpr int GC = GT < 8 ? GT : 8;             // of them at once
+  constexpr int U = (2048 / NT) / GC > 0 ? (2048 / NT) / GC : 1;  // splits
+  const int ng = n * DG;
+#pragma unroll 1
+  for (int g0 = 0; g0 < GT; g0 += GC) {
+    int64_t src[GC];  // split 0's partial of the group; split s: + s*Sq*D
+    int rr[GC];
+    float4 acc[GC];
+#pragma unroll
+    for (int i = 0; i < GC; ++i) {
+      const int gi = threadIdx.x + (g0 + i) * NT;
+      const int r = gi / DG, row = row0 + r;
+      rr[i] = r;
+      src[i] = ((int64_t)(row / Sq) * splits * Sq + row % Sq) * D +
+               (gi % DG) * 4;
+      acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int s0 = 0; s0 < splits; s0 += U) {
+      float4 v[U][GC];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int i = 0; i < GC; ++i)
+          v[u][i] = s0 + u < splits && threadIdx.x + (g0 + i) * NT < ng
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              part_acc + src[i] + (int64_t)(s0 + u) * Sq * D))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (s0 + u >= splits) break;
+#pragma unroll
+        for (int i = 0; i < GC; ++i) {
+          if (threadIdx.x + (g0 + i) * NT >= ng) continue;
+          const float w = sW[rr[i] * splits + s0 + u];
+          acc[i].x = fmaf(v[u][i].x, w, acc[i].x);
+          acc[i].y = fmaf(v[u][i].y, w, acc[i].y);
+          acc[i].z = fmaf(v[u][i].z, w, acc[i].z);
+          acc[i].w = fmaf(v[u][i].w, w, acc[i].w);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < GC; ++i) {
+      const int gi = threadIdx.x + (g0 + i) * NT;
+      if (gi >= ng) continue;
+      const float inv = sInv[rr[i]];
+      T* out = o + (int64_t)(row0 + rr[i]) * D + (gi % DG) * 4;
+      out[0] = from_f32<T>(acc[i].x * inv);
+      out[1] = from_f32<T>(acc[i].y * inv);
+      out[2] = from_f32<T>(acc[i].z * inv);
+      out[3] = from_f32<T>(acc[i].w * inv);
+    }
+  }
+}
+
+// After a split CTA has written its partials: whether it is the last of its
+// (q tile, b*h) to finish, in every thread.  The CTA meets (its partial
+// stores ordered before thread 0's next operation), and thread 0 adds one
+// to the tile's counter with an acq_rel atomic at GPU scope: the release
+// publishes the CTA's partials with the count, the acquire makes the other
+// splits' partials visible to a CTA that sees splits - 1, and the second
+// barrier hands that on to its threads (the pattern of CUTLASS's
+// GenericBarrier, with no fence in every thread).  The last CTA puts the
+// counter back to 0: every other split of the tile has counted, and the
+// next launch on the stream starts after this one ends.
+__device__ __forceinline__ bool last_split(const Params& p) {
+  __shared__ int s_last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* counter = p.counters + blockIdx.y * gridDim.x + blockIdx.x;
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+                 : "=r"(prev)
+                 : "l"(counter), "r"(1)
+                 : "memory");
+    s_last = prev == p.num_splits - 1;
+    if (s_last) *counter = 0;
+  }
+  __syncthreads();
+  return s_last;
+}
+
+// The last split CTA of a tile merges rows [q0, q_end) of its b*h, with
+// `scratch` (merge_floats(q_end - q0) floats of the kernel's shared memory,
+// free once the partials are written) for the weights.
+template <typename T, int D, int NT, int ROWS>
+__device__ __forceinline__ void merge_tile(const Params& p, int bh, int q0,
+                                           int q_end, float* scratch) {
+  const int n = q_end - q0;
+  merge_rows<T, D, NT, ROWS>(p.part_acc, p.part_m, p.part_l,
+                             static_cast<T*>(p.o), p.lse, bh * p.Sq + q0, n,
+                             p.Sq, p.num_splits, scratch,
+                             scratch + n * MAX_SPLITS);
 }
 
 // cp.async one (BK x D) tile of K or V (rows past Sk zero-filled) into a
@@ -359,6 +550,9 @@ flash_fwd_simt(const Params p) {
     }
     if (tx == 0) store_stats(p, bh, qi, m[i], l[i]);
   }
+  if (p.num_splits > 1 && last_split(p))
+    merge_tile<T, D, SIMT_NT, SIMT_BQ>(p, bh, q0, min(q0 + SIMT_BQ, p.Sq),
+                                        sQ);
 }
 
 // ======================================================== decode kernel
@@ -555,6 +749,8 @@ flash_fwd_decode(const Params p) {
     }
     if (c == 0) store_stats(p, bh, i, sM[i], li);
   }
+  if (p.num_splits > 1 && last_split(p))
+    merge_tile<T, D, DEC_NT, NQ>(p, bh, 0, p.Sq, sQ);
 }
 
 // ==================================================== tensor-core kernel
@@ -739,10 +935,16 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     }
     if (lane % 4 == 0) store_stats(p, bh, qi, m2[hr] * LN2, l[hr]);
   }
+  if (p.num_splits > 1 && last_split(p))
+    merge_tile<__nv_bfloat16, D, WG_NT, WG_BQ>(
+        p, bh, q0, min(q0 + WG_BQ, p.Sq), reinterpret_cast<float*>(base));
 }
 
 // ======================================================= combine kernel
-constexpr int CMB_ROWS = 4;  // one warp per row
+// The split kernels merge their own partials (last_split); this standalone
+// kernel merges partials handed to it, CMB_ROWS rows a CTA, with the same
+// merge_rows.
+constexpr int CMB_ROWS = 4;  // one warp per row for the row sums
 
 template <typename T, int D>
 __global__ void __launch_bounds__(32 * CMB_ROWS)
@@ -750,34 +952,12 @@ flash_fwd_combine(const float* __restrict__ part_acc,
                   const float* __restrict__ part_m,
                   const float* __restrict__ part_l, T* __restrict__ o,
                   float* __restrict__ lse, int rows, int Sq, int splits) {
-  constexpr int PER = (D + 31) / 32;
-  const int row = blockIdx.x * CMB_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int bh = row / Sq, qi = row % Sq;
-  const int64_t first = (int64_t)bh * splits * Sq + qi;  // split s: + s*Sq
-  float mx = NEG_INF;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_m[first + s * Sq]);
-  float lsum = 0.f, acc[PER];
-#pragma unroll
-  for (int x = 0; x < PER; ++x) acc[x] = 0.f;
-  for (int s = 0; s < splits; ++s) {  // fixed order: repeats run to run
-    const int64_t r = first + (int64_t)s * Sq;
-    const float w = expf(part_m[r] - mx);
-    lsum += part_l[r] * w;
-#pragma unroll
-    for (int x = 0; x < PER; ++x) {
-      const int c = lane + 32 * x;
-      if (c < D) acc[x] += part_acc[r * D + c] * w;
-    }
-  }
-  const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
-#pragma unroll
-  for (int x = 0; x < PER; ++x) {
-    const int c = lane + 32 * x;
-    if (c < D) o[(int64_t)row * D + c] = from_f32<T>(acc[x] * inv);
-  }
-  if (lane == 0) lse[row] = lsum == 0.f ? NEG_INF : mx + logf(lsum);
+  __shared__ float scratch[merge_floats(CMB_ROWS)];
+  const int row0 = blockIdx.x * CMB_ROWS;
+  const int n = min(CMB_ROWS, rows - row0);
+  merge_rows<T, D, 32 * CMB_ROWS, CMB_ROWS>(part_acc, part_m, part_l, o, lse,
+                                           row0, n, Sq, splits, scratch,
+                                           scratch + n * MAX_SPLITS);
 }
 
 // ================================================================ host
@@ -859,35 +1039,45 @@ int combine(int D, const float* acc, const float* m, const float* l, void* o,
 // 1 = tensor cores (bf16, D 64 or 128), 2 = decode (Sq <= 16).  Strides are
 // in elements, for the batch, head and sequence dims of q, k, v (the head dim
 // must be contiguous; every stride and base 16-byte aligned).  With
-// num_splits == 1 the kernel writes o and lse; otherwise it writes the f32
-// partials part_acc (B*H, splits, Sq, D), part_m and part_l (B*H, splits,
-// Sq), and ray_flash_fwd_combine turns them into o and lse.  Returns
-// cudaGetLastError() after the launch (0 on success), or 10000 + the
-// CUresult of cuTensorMapEncodeTiled when it refuses a TMA tensor map.
+// num_splits == 1 the kernel writes o and lse; otherwise its CTAs write the
+// f32 partials part_acc (B*H, splits, Sq, D), part_m and part_l (B*H,
+// splits, Sq), and the last split CTA of each (q tile, b*h) merges them
+// into o and lse in the same launch.  `counters` then holds num_counters
+// int32 zeros, at least one per (q tile, b*h), and holds zeros again when
+// the kernel ends.  Returns cudaGetLastError() after the launch (0 on
+// success), or 10000 + the CUresult of cuTensorMapEncodeTiled when it
+// refuses a TMA tensor map.
 extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, void* part_acc, void* part_m,
-                             void* part_l, int dtype, int variant,
-                             int num_splits, int B, int H, int Sq, int Sk,
-                             int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
-                             int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                             int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                             float sm_scale, int causal, int q_offset,
-                             int k_offset, void* stream) {
+                             void* part_l, void* counters, int num_counters,
+                             int dtype, int variant, int num_splits, int B,
+                             int H, int Sq, int Sk, int D, int64_t q_sb,
+                             int64_t q_sh, int64_t q_ss, int64_t k_sb,
+                             int64_t k_sh, int64_t k_ss, int64_t v_sb,
+                             int64_t v_sh, int64_t v_ss, float sm_scale,
+                             int causal, int q_offset, int k_offset,
+                             void* stream) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.lse = static_cast<float*>(lse);
   p.part_acc = static_cast<float*>(part_acc);
   p.part_m = static_cast<float*>(part_m);
   p.part_l = static_cast<float*>(part_l);
+  p.counters = static_cast<int*>(counters);
   p.H = H; p.Sq = Sq; p.Sk = Sk; p.num_splits = num_splits;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.sm_scale = sm_scale; p.causal = causal;
   p.q_offset = q_offset; p.k_offset = k_offset;
-  if (num_splits < 1 || B * H < 1) return (int)cudaErrorInvalidValue;
+  if (num_splits < 1 || num_splits > MAX_SPLITS || B * H < 1)
+    return (int)cudaErrorInvalidValue;
   const int bq = variant == DECODE ? 16 : 64;
   const dim3 grid((Sq + bq - 1) / bq, B * H, num_splits);
+  if (num_splits > 1 &&
+      (part_acc == nullptr || part_m == nullptr || part_l == nullptr ||
+       counters == nullptr || (int64_t)grid.x * grid.y > num_counters))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == WGMMA) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
@@ -901,7 +1091,9 @@ extern "C" int ray_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // Merges the splits of each of the B*H*Sq rows in a fixed order into o (the
-// input type, contiguous (B*H, Sq, D)) and lse (f32, (B*H, Sq)).
+// input type, contiguous (B*H, Sq, D)) and lse (f32, (B*H, Sq)): the merge
+// that ray_flash_fwd's split kernels do in their last CTA, on partials
+// handed to it.
 extern "C" int ray_flash_fwd_combine(const void* part_acc, const void* part_m,
                                      const void* part_l, void* o, void* lse,
                                      int dtype, int BH, int Sq, int D,
@@ -911,6 +1103,8 @@ extern "C" int ray_flash_fwd_combine(const void* part_acc, const void* part_m,
   const float* l = static_cast<const float*>(part_l);
   float* out_lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_splits < 1 || num_splits > MAX_SPLITS || BH * Sq < 1)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return combine<float>(D, acc, m, l, o, out_lse, BH * Sq, Sq, num_splits, s);
   if (dtype == 1)

@@ -10,10 +10,11 @@ Counterpart of ``ray_tpu/ops/attention.py``:
 - ``split_plan`` cuts the visible KV tiles of each query tile into
   contiguous runs (split-KV) when the grid would not fill the card;
   ``flash_attention_fwd_split_plain`` and ``merge_partials_plain`` are the
-  plain versions of the split kernel and its combine kernel: un-normalised
-  f32 partials ``(m, l, acc)`` as ``_chunk_attention`` (:296-313) returns
-  them, merged as ``_online_merge`` (:287-293) and normalised as the Pallas
-  kernel's epilogue (:126-128);
+  plain versions of the split kernel and of its merge (done by the split
+  launch's last CTAs, or by the standalone ``flash_fwd_combine``):
+  un-normalised f32 partials ``(m, l, acc)`` as ``_chunk_attention``
+  (:296-313) returns them, merged as ``_online_merge`` (:287-293) and
+  normalised as the Pallas kernel's epilogue (:126-128);
 - ``flash_attention_fwd`` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches ``csrc/flash_fwd.cu`` (which replaces
   the Pallas kernel ``_flash_fwd_kernel``, :66-129) or raises;
@@ -21,7 +22,9 @@ Counterpart of ``ray_tpu/ops/attention.py``:
   block by block: delta = rowsum(o·g), P recomputed from the saved lse with
   live-row and padded-key masking, dq with the extra ``sm_scale``;
 - ``flash_attention_bwd`` is its wrapper: on CPU tensors the plain version,
-  on CUDA tensors the three kernels of ``csrc/flash_bwd.cu`` or a raise;
+  on CUDA tensors the two launches of ``csrc/flash_bwd.cu`` (dQ, which
+  also writes delta, then dK/dV) or a raise; ``flash_bwd_delta`` launches
+  the standalone delta kernel;
   ``bwd_variant`` says which dK/dV and dQ kernels a dtype and head dim
   take (tensor cores for bf16 at D 64/128, f32 FMA otherwise);
 - ``flash_attention`` keeps the JAX signature and the (B, H, S, D) layout,
@@ -59,8 +62,14 @@ MAX_SPLITS = 32
 KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_combine": 0,
                    "flash_bwd_delta": 0, "flash_bwd_dkdv": 0,
                    "flash_bwd_dq": 0}
+# Launches of another kernel that did the named kernel's job inside it:
+# ``flash_fwd`` launches that merged their KV splits in their last CTA, and
+# ``flash_bwd_dq`` launches that computed delta in their prologue.  Counted
+# where those launches are, beside ``KERNEL_LAUNCHES``.
+FUSED_LAUNCHES = {"flash_fwd_combine": 0, "flash_bwd_delta": 0}
 # What the last CUDA launch of the flash forward chose: variant, splits,
-# grid, and which inputs it copied to aligned memory.
+# grid, where the splits were merged, and which inputs it copied to aligned
+# memory.
 LAST_PLAN: Optional[Dict] = None
 # The same for the last CUDA backward: its variant (``bwd_variant``), grids,
 # and the inputs it copied (a head dim that is not contiguous, or on the
@@ -71,6 +80,9 @@ _fn = None
 _combine_fn = None
 _bwd_fns = None
 _num_sms: Dict[int, int] = {}
+# The split forward's int32 counters, one zeroed buffer of num_sms entries
+# per (device, stream); every launch leaves them at zero.
+_merge_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 # =========================================================== reference
@@ -332,7 +344,7 @@ def _kernel():
 
         lib = build.load("flash_fwd")
         fn = lib.ray_flash_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_int64] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_void_p])
@@ -384,7 +396,9 @@ def flash_fwd_combine(acc, m, l, dtype=torch.float32):
     """Merge split partials ``(acc, m, l)`` (the layout of
     ``flash_attention_fwd_split_plain``) into ``(o, lse)``.  CPU tensors
     take ``merge_partials_plain``; CUDA tensors launch the combine kernel of
-    ``csrc/flash_fwd.cu`` or raise."""
+    ``csrc/flash_fwd.cu`` or raise.  The forward merges its own splits in
+    its last CTAs with the same code: this kernel stands alone, for
+    partials handed to it."""
     if acc.device.type == "cpu":
         return merge_partials_plain(acc, m, l, dtype)
     if acc.device.type != "cuda":
@@ -401,29 +415,29 @@ def flash_fwd_combine(acc, m, l, dtype=torch.float32):
     if m.shape != acc.shape[:4] or l.shape != acc.shape[:4]:
         raise ValueError(f"partials disagree: acc {tuple(acc.shape)}, m "
                          f"{tuple(m.shape)}, l {tuple(l.shape)}")
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"flash_fwd_combine merges 1 to {MAX_SPLITS} "
+                         f"splits, not {splits}")
+    if acc.data_ptr() % 16:  # the kernel reads acc as 16-byte vectors
+        acc = acc.clone()
     o = torch.empty((b, h, s_q, d), dtype=dtype, device=acc.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=acc.device)
+    _, comb = _kernel()
     with torch.cuda.device(acc.device):
-        _launch_combine(acc.data_ptr(), m.data_ptr(), l.data_ptr(), splits,
-                        o, lse,
-                        torch.cuda.current_stream(acc.device).cuda_stream)
+        err = comb(acc.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+                   lse.data_ptr(), _KERNEL_DTYPES[dtype], b * h, s_q, d,
+                   splits, torch.cuda.current_stream(acc.device).cuda_stream)
+        _check_err(err, "flash_fwd_combine kernel")
+        KERNEL_LAUNCHES["flash_fwd_combine"] += 1
     return o, lse
 
 
-def _launch_combine(acc_ptr: int, m_ptr: int, l_ptr: int, splits: int, o,
-                    lse, stream) -> None:
-    """Launch the combine kernel on f32 partials (B,H,splits,Sq,D) and
-    (B,H,splits,Sq) x 2 at the given addresses, into o and lse."""
-    b, h, s_q, d = o.shape
-    _, comb = _kernel()
-    err = comb(acc_ptr, m_ptr, l_ptr, o.data_ptr(), lse.data_ptr(),
-               _KERNEL_DTYPES[o.dtype], b * h, s_q, d, splits, stream)
-    _check_err(err, "flash_fwd_combine kernel")
-    KERNEL_LAUNCHES["flash_fwd_combine"] += 1
-
-
 def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, q_offset: int,
-                    k_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    k_offset: int, partials: bool = False):
+    """``(o, lse)`` from one launch of the forward kernels.  With
+    ``partials``, ``(o, lse, part)``: ``part`` is the split launch's f32
+    partials ``(acc, m, l)`` in ``flash_fwd_combine``'s layout, which its
+    last CTAs merged into o and lse (None with one split)."""
     global LAST_PLAN
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
@@ -452,7 +466,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, q_offset: int,
     o = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     if s_q == 0:
-        return o, lse
+        return (o, lse, None) if partials else (o, lse)
     if s_q <= DECODE_MAX_SQ:
         variant, block_q = "decode", DECODE_MAX_SQ
     elif q.dtype == torch.bfloat16 and d in (64, 128):
@@ -479,30 +493,44 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, q_offset: int,
     splits = plan.num_splits
     LAST_PLAN = {"variant": variant, "num_splits": splits,
                  "grid": [-(-s_q // block_q), b * h, splits],
+                 "merge": "in_kernel" if splits > 1 else None,
                  "copied": copied}
-    part = (None, None, None)
+    part, ptrs = None, (None, None, None)
     if splits > 1:
         # one f32 workspace: acc (B,H,splits,Sq,D), then m, then l
         # (B,H,splits,Sq) each.  Dropping it on return is safe: PyTorch's
         # caching allocator hands the block out again only to work queued
-        # on this stream after the combine kernel.
+        # on this stream after the kernel.
         n = b * h * splits * s_q
         ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
-        base = ws.data_ptr()
-        part = (base, base + 4 * n * d, base + 4 * n * (d + 1))
+        part = (ws[:n * d].view(b, h, splits, s_q, d),
+                ws[n * d:n * (d + 1)].view(b, h, splits, s_q),
+                ws[n * (d + 1):].view(b, h, splits, s_q))
+        ptrs = tuple(t.data_ptr() for t in part)
     fn, _ = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters, key = None, (q.device, stream)
+        if splits > 1:
+            counters = _merge_counters.get(key)
+            if counters is None:
+                counters = _merge_counters[key] = torch.zeros(
+                    _sm_count(q.device), dtype=torch.int32, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), *part,
+                 lse.data_ptr(), *ptrs,
+                 None if counters is None else counters.data_ptr(),
+                 0 if counters is None else counters.numel(),
                  _KERNEL_DTYPES[q.dtype], _VARIANTS[variant], splits, b, h,
                  s_q, s_k, d, *strides, float(sm_scale), int(causal),
                  int(q_offset), int(k_offset), stream)
+        if err and counters is not None:
+            # a launch that failed may have left counts behind
+            _merge_counters.pop(key, None)
         _check_err(err, "flash_fwd kernel")
         KERNEL_LAUNCHES["flash_fwd"] += 1
         if splits > 1:
-            _launch_combine(*part, splits, o, lse, stream)
-    return o, lse
+            FUSED_LAUNCHES["flash_fwd_combine"] += 1
+    return (o, lse, part) if partials else (o, lse)
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -540,8 +568,8 @@ def _bwd_kernels():
         fns = {"flash_bwd_delta": delta}
         for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
             fn = getattr(lib, "ray_" + name)
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                           + [ctypes.c_int64] * 12
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                           + [ctypes.c_int64] * 15
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -580,7 +608,10 @@ def _bwd_inputs(variant: str, named):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool, sm_scale: float,
-                    q_offset: int, k_offset: int):
+                    q_offset: int, k_offset: int, return_delta: bool = False):
+    """``(dq, dk, dv)`` from the two backward launches: dQ, which also
+    writes delta = rowsum(o·g), then dK/dV.  With ``return_delta``,
+    ``(dq, dk, dv, delta)``: the delta the dQ launch wrote."""
     global LAST_BWD_PLAN
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
@@ -609,7 +640,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool, sm_scale: float,
     dk = torch.empty((b, h, s_k, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, s_k, d), dtype=v.dtype, device=q.device)
     if s_q == 0 or s_k == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        out = (dq.zero_(), dk.zero_(), dv.zero_())
+        return (*out, flash_bwd_delta(o, g)) if return_delta else out
     variant = bwd_variant(q.dtype, d)
     (q, k, v, o, g), st, copied = _bwd_inputs(
         variant, (("q", q), ("k", k), ("v", v), ("o", o), ("g", g)))
@@ -622,39 +654,29 @@ def _flash_bwd_cuda(q, k, v, o, lse, g, causal: bool, sm_scale: float,
                      "copied": copied}
     fns = _bwd_kernels()
     dt = _KERNEL_DTYPES[q.dtype]
-    strides = [x for i in (0, 1, 2, 4) for x in st[i]]  # q, k, v, g
+    strides = [x for i in (0, 1, 2, 4, 3) for x in st[i]]  # q, k, v, g, o
+    # written by the dQ launch, read by the dK/dV launch after it
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        delta = _launch_delta(o, g, stream)
-        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
             err = fns[name](
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), dt, b, h, s_q, s_k, d,
                 *strides, float(sm_scale), int(causal), int(q_offset),
                 int(k_offset), stream)
             _check_err(err, f"{name} kernel")
             KERNEL_LAUNCHES[name] += 1
-    return dq, dk, dv
-
-
-def _launch_delta(o, g, stream) -> torch.Tensor:
-    """Launch the delta kernel on o and g (same dtype, shape and device, a
-    contiguous head dim); returns delta (B, H, Sq) f32."""
-    b, h, s_q, d = o.shape
-    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=o.device)
-    err = _bwd_kernels()["flash_bwd_delta"](
-        o.data_ptr(), g.data_ptr(), delta.data_ptr(), _KERNEL_DTYPES[o.dtype],
-        b, h, s_q, d, *o.stride()[:3], *g.stride()[:3], stream)
-    _check_err(err, "flash_bwd_delta kernel")
-    KERNEL_LAUNCHES["flash_bwd_delta"] += 1
-    return delta
+        FUSED_LAUNCHES["flash_bwd_delta"] += 1
+    return (dq, dk, dv, delta) if return_delta else (dq, dk, dv)
 
 
 def flash_bwd_delta(o, g) -> torch.Tensor:
     """rowsum(o·g) in f32.  CPU tensors take ``flash_bwd_delta_plain``;
-    CUDA tensors launch the delta kernel of ``csrc/flash_bwd.cu`` (the
-    backward's first launch) or raise."""
+    CUDA tensors launch the standalone delta kernel of
+    ``csrc/flash_bwd.cu`` or raise.  The backward does not launch it: its
+    dQ kernel computes delta in its prologue with the same code."""
     if o.device.type == "cpu":
         return flash_bwd_delta_plain(o, g)
     if o.device.type != "cuda":
@@ -666,12 +688,22 @@ def flash_bwd_delta(o, g) -> torch.Tensor:
                          f"D) shape, device and dtype (float32 or "
                          f"bfloat16), not {tuple(o.shape)} {o.dtype} and "
                          f"{tuple(g.shape)} {g.dtype}")
+    if o.shape[3] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_delta takes head dim in "
+                         f"{KERNEL_HEAD_DIMS}, not {o.shape[3]}")
     if o.numel() == 0:
         return torch.zeros(o.shape[:3], device=o.device)
     o, g = (t if t.stride(3) == 1 else t.contiguous() for t in (o, g))
+    b, h, s_q, d = o.shape
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
-        return _launch_delta(o, g,
-                             torch.cuda.current_stream(o.device).cuda_stream)
+        err = _bwd_kernels()["flash_bwd_delta"](
+            o.data_ptr(), g.data_ptr(), delta.data_ptr(),
+            _KERNEL_DTYPES[o.dtype], b, h, s_q, d, *o.stride()[:3],
+            *g.stride()[:3], torch.cuda.current_stream(o.device).cuda_stream)
+        _check_err(err, "flash_bwd_delta kernel")
+        KERNEL_LAUNCHES["flash_bwd_delta"] += 1
+    return delta
 
 
 def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,

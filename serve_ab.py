@@ -8,8 +8,9 @@ second round the change, the parent, the parent, the change), each in a
 fresh process that imports ``ray_tpu_torch`` from its own tree and times
 three serving runs of chip_smoke.py phase 5's model and traffic (from the
 chip_smoke.py beside this script) after one untimed run that builds the
-kernels.  Prints one line per timed run and the median tokens/s and TTFT of
-each side.  Needs a CUDA card.
+kernels, then traces one more with torch.profiler for the device's busy
+time.  Prints one line per run and the median tokens/s, TTFT and busy time
+of each side.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ def _one(root: str) -> None:
     if not ray_tpu_torch.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"ray_tpu_torch came from {ray_tpu_torch.__file__}"
                            f", not from {root}")
+    from torch.profiler import ProfilerActivity, profile
+
     for rep in range(4):
         core = engine()
         torch.cuda.synchronize()
@@ -56,6 +59,16 @@ def _one(root: str) -> None:
                 "wall_s": wall,
                 "tokens_per_s": sum(len(r["tokens"]) for r in res) / wall,
                 "ttft_median_s": ttft[len(ttft) // 2]}), flush=True)
+    # one more run under the profiler: the device's busy time
+    core = engine()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        core.run_until_done([core.submit(p, params) for p in prompts])
+        torch.cuda.synchronize()
+    print(json.dumps({"device_busy_s": sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6}),
+        flush=True)
 
 
 def main() -> int:
@@ -71,6 +84,7 @@ def main() -> int:
     trees = {"parent": os.path.abspath(args[0]),
              "change": os.path.abspath(args[1])}
     runs = {"parent": [], "change": []}
+    busy = {"parent": [], "change": []}
     for r in range(rounds):
         a, b = ("parent", "change") if r % 2 == 0 else ("change", "parent")
         for side in (a, b, b, a):
@@ -80,6 +94,11 @@ def main() -> int:
                 cwd=trees[side]).stdout
             for line in out.splitlines():
                 row = json.loads(line)
+                if "device_busy_s" in row:
+                    busy[side].append(row["device_busy_s"])
+                    print(f"[serve_ab] {side}: traced run device_busy_s="
+                          f"{row['device_busy_s']}", flush=True)
+                    continue
                 runs[side].append(row)
                 print(f"[serve_ab] {side}: wall_s={row['wall_s']} "
                       f"tokens_per_s={row['tokens_per_s']} "
@@ -88,7 +107,9 @@ def main() -> int:
         print(f"[serve_ab] {side} median over {len(rows)} runs: tokens_per_s="
               f"{statistics.median(r['tokens_per_s'] for r in rows)} "
               f"ttft_median_s="
-              f"{statistics.median(r['ttft_median_s'] for r in rows)}")
+              f"{statistics.median(r['ttft_median_s'] for r in rows)} "
+              f"device_busy_s={statistics.median(busy[side])} (over "
+              f"{len(busy[side])} traced runs)")
     return 0
 
 

@@ -182,6 +182,12 @@ def _split_then_merge(q, k, v, num_splits, **kw):
      dict(causal=False), 2),
     ("more_splits_than_tiles", dict(b=1, h=2, s=128, d=16),
      dict(causal=True), 4),
+    # the serving path's split counts (test_split_plan_at_serving_shapes):
+    # a decode step over 600 keys, and a 256-row prefill chunk at offset 256
+    ("serve_decode", dict(b=1, h=2, s=1, s_k=600, d=64),
+     dict(causal=True, q_offset=599), 10),
+    ("serve_chunk", dict(b=1, h=2, s=256, s_k=512, d=64),
+     dict(causal=True, q_offset=256), 3),
 ])
 def test_split_plain_matches_jax_flash(name, shape, kw, splits):
     q, k, v = _qkv(**shape)
@@ -272,6 +278,173 @@ def test_split_plan_covers_each_visible_tile_once(B, H, Sq, Sk, causal, qo,
         assert covered == list(range(n_vis))
     assert plan == tattn.split_plan(B, H, Sq, Sk, causal, qo, ko, block_q,
                                     64, 132)
+
+
+@pytest.mark.parametrize("Sq,Sk,qo,block_q,splits", [
+    (1, 600, 599, 16, 10),    # decode step of the 600-token prompt
+    (256, 512, 256, 64, 3),   # second prefill chunk of 256
+])
+def test_split_plan_at_serving_shapes(Sq, Sk, qo, block_q, splits):
+    # GPT-2-small's 12 heads, one sequence, on the H100's 132 SMs: the split
+    # counts test_split_plain_matches_jax_flash checks at two heads
+    assert tattn.split_plan(1, 12, Sq, Sk, True, qo, 0, block_q, 64,
+                            132).num_splits == splits
+
+
+@pytest.mark.parametrize("num_sms", [132, 16])
+@pytest.mark.parametrize("B,H,Sq,Sk,causal,qo,block_q", [
+    (1, 12, 1, 600, True, 599, 16),
+    (8, 12, 1, 1000, True, 999, 16),
+    (16, 12, 1, 1000, True, 999, 16),
+    (1, 12, 5, 600, True, 595, 16),
+    (1, 12, 256, 512, True, 256, 64),
+    (1, 12, 512, 512, True, 0, 64),
+    (1, 1, 2048, 2048, False, 0, 64),
+    (3, 5, 70, 150, False, 0, 64),
+    (1, 12, 64, 64, True, 0, 64),
+])
+def test_split_plans_fit_the_merge_counters(B, H, Sq, Sk, causal, qo,
+                                            block_q, num_sms):
+    # a split launch's last CTAs count on one int32 per (query tile, b*h),
+    # from a buffer of num_sms entries: splits only below that many tiles
+    plan = tattn.split_plan(B, H, Sq, Sk, causal, qo, 0, block_q, 64,
+                            num_sms)
+    tiles = B * H * -(-Sq // block_q)
+    if plan.num_splits > 1:
+        assert tiles < num_sms
+    else:
+        assert plan.num_splits == 1
+
+
+# -------------------------------------- the wrappers' launches, with fakes
+class _Entry:
+    """Stands in for a ctypes entry of the kernel libraries: records the
+    arguments of each call in ``calls`` and returns ``rc``."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls, self.rc = name, calls, 0
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return self.rc
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """The CUDA wrappers run on CPU tensors against recording fakes of the
+    C entries, a fake stream (77) and 132 SMs; the launch counters start at
+    0 and are put back afterwards."""
+    import contextlib
+    import types
+
+    calls = []
+    entries = {name: _Entry(name, calls) for name in (
+        "flash_fwd", "flash_fwd_combine", "flash_bwd_delta",
+        "flash_bwd_dkdv", "flash_bwd_dq")}
+    monkeypatch.setattr(tattn, "_kernel", lambda: (
+        entries["flash_fwd"], entries["flash_fwd_combine"]))
+    monkeypatch.setattr(tattn, "_bwd_kernels", lambda: {
+        k: v for k, v in entries.items() if k.startswith("flash_bwd")})
+    monkeypatch.setattr(tattn, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(tattn, "_merge_counters", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=77))
+    for counts in (tattn.KERNEL_LAUNCHES, tattn.FUSED_LAUNCHES):
+        for key in counts:
+            monkeypatch.setitem(counts, key, 0)
+    return calls, entries
+
+
+def test_split_forward_is_one_launch_that_merges(fake_kernels):
+    calls, entries = fake_kernels
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b=1, h=12, s=1, s_k=600,
+                                                  d=64))
+    o, lse, part = tattn._flash_fwd_cuda(q, k, v, True, 0.125, 599, 0,
+                                         partials=True)
+    # one C call at 10 splits, no combine launch
+    assert [name for name, _ in calls] == ["flash_fwd"]
+    args = calls[0][1]
+    assert args[12] == 10 and tattn.LAST_PLAN["num_splits"] == 10
+    assert tattn.LAST_PLAN["merge"] == "in_kernel"
+    # the partials it was handed, in the combine kernel's layout
+    assert [t.data_ptr() for t in part] == list(args[5:8])
+    assert part[0].shape == (1, 12, 10, 1, 64)
+    assert part[1].shape == part[2].shape == (1, 12, 10, 1)
+    # one zeroed int32 counter buffer of num_sms entries for (device,
+    # stream), at least one counter per (query tile, b*h)
+    counters = tattn._merge_counters[(q.device, 77)]
+    assert counters.dtype == torch.int32 and counters.numel() == 132
+    assert not counters.any()
+    assert args[8] == counters.data_ptr() and args[9] == 132
+    assert 1 * 12 <= args[9]
+    assert tattn.KERNEL_LAUNCHES["flash_fwd"] == 1
+    assert tattn.KERNEL_LAUNCHES["flash_fwd_combine"] == 0
+    assert tattn.FUSED_LAUNCHES["flash_fwd_combine"] == 1
+    # the next split launch on the stream takes the same buffer
+    tattn._flash_fwd_cuda(q, k, v, True, 0.125, 599, 0)
+    assert calls[1][1][8] == counters.data_ptr()
+    # one split: no partials, no counters
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b=4, h=12, s=256, d=64))
+    tattn._flash_fwd_cuda(q, k, v, True, 0.125, 0, 0)
+    assert tattn.LAST_PLAN["num_splits"] == 1
+    assert tattn.LAST_PLAN["merge"] is None
+    assert calls[2][1][5:10] == (None, None, None, None, 0)
+    assert tattn.FUSED_LAUNCHES["flash_fwd_combine"] == 2
+    assert [name for name, _ in calls].count("flash_fwd_combine") == 0
+
+
+def test_failed_split_launch_raises_and_drops_its_counters(fake_kernels):
+    calls, entries = fake_kernels
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b=1, h=12, s=1, s_k=600,
+                                                  d=64))
+    entries["flash_fwd"].rc = 700  # cudaErrorIllegalAddress
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tattn._flash_fwd_cuda(q, k, v, True, 0.125, 599, 0)
+    # no other kernel stands in, and the counts it may have left are gone
+    assert [name for name, _ in calls] == ["flash_fwd"]
+    assert tattn._merge_counters == {}
+    assert tattn.KERNEL_LAUNCHES["flash_fwd"] == 0
+    entries["flash_fwd"].rc = 0
+    tattn._flash_fwd_cuda(q, k, v, True, 0.125, 599, 0)
+    fresh = tattn._merge_counters[(q.device, 77)]
+    assert calls[-1][1][8] == fresh.data_ptr() and not fresh.any()
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float32, "simt")])
+def test_backward_launches_dq_with_delta_then_dkdv(fake_kernels, dtype,
+                                                   variant):
+    calls, _ = fake_kernels
+    B, H, S, D = 2, 3, 128, 64
+    q, k, v, o = (torch.zeros(B, H, S, D, dtype=dtype) for _ in range(4))
+    # g as the (B, H, S, D) view of a (B, S, H, D) tensor: other strides
+    # than o's, so the order of the two in the call shows
+    g = torch.zeros(B, S, H, D, dtype=dtype).transpose(1, 2)
+    lse = torch.zeros(B, H, S)
+    *grads, delta = tattn._flash_bwd_cuda(q, k, v, o, lse, g, True, 0.125,
+                                          0, 0, return_delta=True)
+    assert tattn.LAST_BWD_PLAN["variant"] == variant
+    # dQ first, then dK/dV, never the delta kernel
+    assert [name for name, _ in calls] == ["flash_bwd_dq", "flash_bwd_dkdv"]
+    (_, dq_args), (_, dkdv_args) = calls
+    # both get the same arguments: o, and the one delta buffer that dQ
+    # writes and dK/dV reads
+    assert dq_args == dkdv_args
+    assert dq_args[4] == o.data_ptr() and dq_args[3] == g.data_ptr()
+    assert dq_args[6] == delta.data_ptr()
+    assert delta.shape == (B, H, S) and delta.dtype == torch.float32
+    # strides after the 10 pointers and 6 ints: q, k, v, g, o
+    strides = dq_args[16:31]
+    assert strides[9:12] == (S * H * D, D, H * D)
+    assert strides[12:15] == (H * S * D, S * D, D)
+    assert [t.data_ptr() for t in grads] == list(dq_args[7:10])
+    assert tattn.KERNEL_LAUNCHES["flash_bwd_delta"] == 0
+    assert tattn.KERNEL_LAUNCHES["flash_bwd_dq"] == 1
+    assert tattn.KERNEL_LAUNCHES["flash_bwd_dkdv"] == 1
+    assert tattn.FUSED_LAUNCHES["flash_bwd_delta"] == 1
 
 
 # ------------------------------------------------------------- backward
