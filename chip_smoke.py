@@ -48,6 +48,26 @@ Phases, each fatal on failure:
      peak memory, MFU, a traced step;
      then loss parity against reference attention in bf16 (3 steps at
      batch 4) and in f32 (one step, loss and gradient norm);
+  6b. Llama training (a main path): ShardedPretrainer(LlamaConfig(),
+     MeshConfig()) takes 10 steps at the default config (12 layers, 768
+     wide, 12 heads, 4 KV heads, SwiGLU 2048, vocab 32000, bf16, flash,
+     remat "full") at batch 8 x 2048; the same checks, with flash_fwd 24
+     launches a step (12 forward, 12 recomputed) and dK/dV and dQ 12; bf16
+     parity against reference attention over 3 steps at batch 2 and the
+     f32 step (loss 1e-5, gradient norm 1e-4 relative); the lm_head GEMMs
+     timed alone at Llama's vocab (32000) and GPT-2's (50257); a traced
+     step (idle share, top kernels) and a second one with the host side
+     traced, for the device time of each op that launched kernels;
+  6c. the mesh (a main path): torch.cuda.device_count() on its own line;
+     phase 6's run again through the DTensor path on a one-rank NCCL mesh
+     (losses within phase 6's bf16 bar of phase 6's, launches as phase 6,
+     step time beside phase 6's, a traced step's idle share); where the
+     machine has the cards, NCCL ranks take phase 6's f32 step under dp=2
+     and tp=2 (two cards) and tp=2 x fsdp=2 (four cards), each rank within
+     1e-5 (loss) and 1e-4 (gradient norm) relative of the one-card step;
+     a line for each case that did not run.  ``python3 chip_smoke.py
+     --multi-card`` builds the kernels and runs only the one-card f32 step
+     and these cases;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -58,6 +78,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import queue
 import re
 import shutil
 import subprocess
@@ -126,7 +147,14 @@ def _device_ms(fn, iters: int = 20, part=None):
         if us > 0:
             break
     else:
-        raise RuntimeError("the profiler traced no device time")
+        if part is not None:
+            raise RuntimeError("the profiler traced no device time")
+        # the whole call's time on the card's stream stands in for the sum
+        # of its kernels' times
+        ms = _time_ms(fn, iters)
+        print(f"[timing] the profiler traced no device time three times; "
+              f"CUDA events give {ms:.5f} ms a call", flush=True)
+        return ms
     if part is None:
         return us / 1e3 / iters
 
@@ -163,6 +191,8 @@ ATTN_CASES = [
     ("d128_causal_bf16", torch.bfloat16, 1, 8, 1024, 1024, 128, True, 0, 0),
     ("fully_masked_f32", torch.float32, 1, 12, 64, 64, 64, True, 0, 1000),
     ("serve_decode_bf16", torch.bfloat16, 1, 12, 1, 600, 64, True, 599, 0),
+    # LlamaLMModel's training shape at its default config (phase 6b)
+    ("llama_train_bf16", torch.bfloat16, 8, 12, 2048, 2048, 64, True, 0, 0),
     # q/k/v as strided views of one (1, 512, 3*768) tensor, GPT2LMModel's
     # layout: TMA on strided input
     ("gpt2_fused_qkv_bf16", torch.bfloat16, 1, 12, 512, 512, 64, True, 0, 0),
@@ -387,6 +417,7 @@ BWD_CASES = [
     # name, dtype, B, H, Sq, Sk, D, causal, q_offset, k_offset
     ("train_bf16", torch.bfloat16, 16, 12, 1024, 1024, 64, True, 0, 0),
     ("train_f32", torch.float32, 4, 12, 1024, 1024, 64, True, 0, 0),
+    ("llama_train_bf16", torch.bfloat16, 8, 12, 2048, 2048, 64, True, 0, 0),
     ("unaligned_noncausal_f32", torch.float32, 2, 12, 200, 200, 64, False,
      0, 0),
     ("chunk_offset_f32", torch.float32, 1, 12, 128, 512, 64, True, 384, 0),
@@ -405,7 +436,7 @@ BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # the training path's own shape
 TRAIN_CASE = "train_bf16"
 # cases held to the bf16 accuracy bar (_bf16_accuracy)
-ACCURACY_CASES = {"train_bf16", "d128_causal_bf16"}
+ACCURACY_CASES = {"train_bf16", "llama_train_bf16", "d128_causal_bf16"}
 
 
 def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
@@ -1032,6 +1063,394 @@ def train(card, card_label):
                       "parity_bf16": par, "parity_f32": f32}
 
 
+# ------------------------------------------------------------ phase 6b
+def _trace_step(step, by_op: bool = False):
+    """One call of ``step`` traced by torch.profiler: (wall ms, device busy
+    ms, device ms of each kernel, and with ``by_op`` the device ms each
+    CPU-side op launched itself)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if by_op else [])
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, ops = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = e.self_device_time_total / 1e3
+        elif e.self_device_time_total > 0:
+            ops[e.key] = e.self_device_time_total / 1e3
+    busy = sum(kernels.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler traced no device time in the step")
+    return wall, busy, kernels, ops
+
+
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_PARITY_BATCH = 8, 2048, 2
+
+
+def _llama_batch(cfg, batch, seed):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, (batch, LLAMA_SEQ))
+            for k in ("input_ids", "targets")}
+
+
+def lm_head_gemms(vocab: int, tokens: int, width: int = 768) -> dict:
+    """Device ms of the lm_head's three bf16 GEMMs of a training step
+    (logits, the input's gradient, the weight's gradient) at ``vocab``
+    and ``tokens``, each with the share of cuBLAS kernels named
+    ``align1`` (taken when a dim is not a multiple of 8)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    x, w, g = randn(tokens, width), randn(vocab, width), randn(tokens, vocab)
+    out = {}
+    for name, fn in (("logits", lambda: F.linear(x, w)),
+                     ("grad_input", lambda: g @ w),
+                     ("grad_weight", lambda: g.t() @ x)):
+        out[name], out[name + "_align1"] = _device_ms(fn, part="align1")
+    out["total"] = out["logits"] + out["grad_input"] + out["grad_weight"]
+    return out
+
+
+def train_llama(card, card_label):
+    """The Llama training path: ShardedPretrainer on LlamaConfig() (bf16,
+    flash, remat "full") on one card."""
+    import dataclasses
+
+    from ray_tpu_torch.models import LlamaConfig, ShardedPretrainer
+    from ray_tpu_torch.parallel import MeshConfig
+
+    cfg = LlamaConfig()
+    trainer = ShardedPretrainer(cfg, MeshConfig())
+    batch = _llama_batch(cfg, LLAMA_BATCH, 0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, t_start = [], None
+    for i in range(TRAIN_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t_start) / (TRAIN_STEPS - 2)
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [t.item() for t in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Llama losses not finite and falling: "
+                             f"{losses}")
+    calls = cfg.n_layer * TRAIN_STEPS
+    # remat "full": each layer's forward runs again in the backward
+    want = {"flash_fwd": 2 * calls, "flash_fwd_combine": 0,
+            "flash_bwd_delta": 0, "flash_bwd_dkdv": calls,
+            "flash_bwd_dq": calls, "fused:flash_fwd_combine": 0,
+            "fused:flash_bwd_delta": calls}
+    if launches != want:
+        raise AssertionError(f"Llama training launches {launches}, "
+                             f"expected {want}")
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    bf16_peak = _peaks(card)[1]
+    mfu = 6 * n_params * tokens / step_s / bf16_peak
+    print(f"[train_llama] LlamaConfig() ({n_params} params, {cfg.n_layer} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_head} heads, "
+          f"{cfg.n_kv_head} KV heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, bf16, flash, remat {cfg.remat_policy}), batch "
+          f"{LLAMA_BATCH} x {LLAMA_SEQ}, {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 4) for x in losses]}; step_ms={step_s * 1e3:.3f} "
+          f"tokens_per_s={tokens / step_s:.1f} peak_memory_gb={peak_gb:.3f} "
+          f"mfu={mfu:.4f} (6*N FLOPs a token over "
+          f"{bf16_peak / 1e12:.0f} TFLOP/s); launches {launches} on "
+          f"{card_label}", flush=True)
+
+    wall, busy, kernels, _ = _trace_step(lambda: trainer.step(batch))
+    flash = {name: sum(t for k, t in kernels.items() if name in k)
+             for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    # which ops launched the device time, from a second traced step (the
+    # CPU side of the trace slows the host, so the idle share is the
+    # first trace's)
+    _, _, _, ops = _trace_step(lambda: trainer.step(batch), by_op=True)
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+    trace = {"wall_ms": wall, "busy_ms": busy,
+             "idle_share": 1 - busy / wall, "flash_ms": flash,
+             "top": [[k[:80], t] for k, t in top],
+             "top_ops": [[k[:80], t] for k, t in top_ops]}
+    print(f"[train_llama] traced step: wall_ms={trace['wall_ms']:.3f} "
+          f"device_busy_ms={busy:.3f} (idle share {trace['idle_share']:.4f})"
+          f"; flash kernels " + ", ".join(f"{k} {t:.3f} ms"
+                                          for k, t in flash.items())
+          + "; top kernels: "
+          + "; ".join(f"{k[:70]} {t:.3f} ms" for k, t in top), flush=True)
+    print("[train_llama] device ms a step by the op that launched it: "
+          + "; ".join(f"{k[:60]} {t:.3f}" for k, t in top_ops), flush=True)
+    del trainer
+
+    # the lm_head GEMMs alone: Llama's vocab (a multiple of 8) against
+    # GPT-2's 50257 (phase 6), at the same 16384 tokens a step
+    heads = {"llama_32000": lm_head_gemms(cfg.vocab_size, tokens),
+             "gpt2_50257": lm_head_gemms(50257, TRAIN_BATCH * TRAIN_SEQ)}
+    for key, h in heads.items():
+        print(f"[train_llama] lm_head GEMMs {key} ({tokens} tokens x 768): "
+              + " ".join(f"{k}={v:.4f}" for k, v in h.items())
+              + " ms (device; *_align1: the align1 kernels' share)",
+              flush=True)
+
+    batches = [_llama_batch(cfg, LLAMA_PARITY_BATCH, 1 + i)
+               for i in range(PARITY_STEPS)]
+    par = {}
+    for impl in ("flash", "reference"):
+        t = ShardedPretrainer(dataclasses.replace(cfg, attention_impl=impl),
+                              MeshConfig())
+        par[impl] = [t.step(b).item() for b in batches]
+        del t
+    rel = max(abs(a - b) / abs(b) for a, b in zip(par["flash"],
+                                                   par["reference"]))
+    if rel > BF16_LOSS_RTOL:
+        raise AssertionError(f"Llama bf16 losses flash {par['flash']} vs "
+                             f"reference {par['reference']}: rel {rel:.3e} "
+                             f"> {BF16_LOSS_RTOL:.3e}")
+    print(f"[train_llama] bf16 parity, batch {LLAMA_PARITY_BATCH}, "
+          f"{PARITY_STEPS} steps: flash {par['flash']} reference "
+          f"{par['reference']}, max rel {rel:.3e} (bar {BF16_LOSS_RTOL:.3e})",
+          flush=True)
+    f32 = {}
+    for impl in ("flash", "reference"):
+        t = ShardedPretrainer(dataclasses.replace(
+            cfg, attention_impl=impl, dtype=torch.float32), MeshConfig())
+        loss = t.step(batches[0]).item()
+        f32[impl] = (loss, t.opt.last_grad_norm.item())
+        del t
+    (lf, nf), (lr_, nr) = f32["flash"], f32["reference"]
+    if not (abs(lf - lr_) <= F32_LOSS_RTOL * abs(lr_)
+            and abs(nf - nr) <= F32_NORM_RTOL * abs(nr)):
+        raise AssertionError(f"Llama f32 step flash (loss {lf}, grad norm "
+                             f"{nf}) vs reference ({lr_}, {nr})")
+    print(f"[train_llama] f32 parity, one step at batch "
+          f"{LLAMA_PARITY_BATCH}, TF32 off: loss flash {lf:.8f} reference "
+          f"{lr_:.8f} (rel {abs(lf - lr_) / abs(lr_):.3e}, bar "
+          f"{F32_LOSS_RTOL}); grad norm flash {nf:.8f} reference {nr:.8f} "
+          f"(rel {abs(nf - nr) / abs(nr):.3e}, bar {F32_NORM_RTOL})",
+          flush=True)
+    return launches, {"step_ms": step_s * 1e3,
+                      "tokens_per_s": tokens / step_s,
+                      "peak_memory_gb": peak_gb, "mfu": mfu,
+                      "n_params": n_params, "losses": losses,
+                      "trace": trace, "lm_head_gemms": heads,
+                      "parity_bf16": par, "parity_f32": f32}
+
+
+# ------------------------------------------------------------ phase 6c
+MESH_TIMEOUT_S = 300
+# (ranks, mesh): each runs where the machine has that many cards
+MULTI_CARD_CASES = ((2, {"dp": 2}), (2, {"dp": 1, "tp": 2}),
+                    (4, {"dp": 1, "fsdp": 2, "tp": 2}))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_rank(rank, world, port, mesh_kw, results):
+    """One NCCL rank of a multi-card case: phase 6's f32 step (batch
+    PARITY_BATCH, the first parity batch) under ``mesh_kw``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+    from ray_tpu_torch.ops import attention as tattn
+    from ray_tpu_torch.parallel import MeshConfig
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = GPT2Config(remat=False, dtype=torch.float32)
+        trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw))
+        loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+        # what the kernels' alignment checks copied from the local shards
+        copied = {"fwd": (tattn.LAST_PLAN or {}).get("copied"),
+                  "bwd": (tattn.LAST_BWD_PLAN or {}).get("copied")}
+        results.put((rank, loss, trainer.opt.last_grad_norm.item(), copied))
+    finally:
+        dist.destroy_process_group()
+
+
+def _multi_card(world, mesh_kw, ref):
+    """``world`` NCCL ranks, one a card, take the f32 step under
+    ``mesh_kw``; each rank's loss and gradient norm against the one-card
+    step ``ref``.  The gang is killed, and the phase fails, after
+    MESH_TIMEOUT_S."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, mesh_kw,
+                                                  results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = [], time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while len(got) < world and time.monotonic() < deadline:
+            try:
+                got.append(results.get(timeout=5))
+            except queue.Empty:  # check that the ranks are alive
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if len(got) != world or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"multi-card case {mesh_kw}: ranks gave "
+                             f"{got}, exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    (loss1, norm1) = ref
+    for rank, loss, norm, _ in got:
+        if not (abs(loss - loss1) <= F32_LOSS_RTOL * abs(loss1)
+                and abs(norm - norm1) <= F32_NORM_RTOL * abs(norm1)):
+            raise AssertionError(f"multi-card {mesh_kw} rank {rank}: loss "
+                                 f"{loss} grad norm {norm} against the one-"
+                                 f"card step's {loss1}, {norm1}")
+    return sorted(got)
+
+
+def multi_card(n_cards, ref_f32) -> dict:
+    """Every case of MULTI_CARD_CASES that ``n_cards`` cards can hold,
+    against the one-card f32 step ``ref_f32`` (loss, gradient norm); a
+    line for those that did not run."""
+    multi = {}
+    for world, mesh_kw in MULTI_CARD_CASES:
+        if world > n_cards:
+            print(f"[mesh] {n_cards} card(s): the {world}-card case "
+                  f"{mesh_kw} did not run", flush=True)
+            continue
+        got = _multi_card(world, mesh_kw, ref_f32)
+        multi[json.dumps(mesh_kw)] = got
+        print(f"[mesh] {world} NCCL ranks, {mesh_kw}, f32 step at batch "
+              f"{PARITY_BATCH}: (rank, loss, grad norm, inputs the kernels "
+              f"copied) {got} against the one-card step's {ref_f32} (bars "
+              f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
+    return multi
+
+
+def multi_card_only(card_label) -> int:
+    """``chip_smoke.py --multi-card``: phase 6's f32 flash step on card 0,
+    then the multi-card cases against it, and nothing else (the kernels
+    are built first).  Needs two cards or more."""
+    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+
+    n_cards = torch.cuda.device_count()
+    print(f"[mesh] torch.cuda.device_count()={n_cards}", flush=True)
+    if n_cards < 2:
+        raise RuntimeError("--multi-card needs two cards or more")
+    cfg = GPT2Config(remat=False, dtype=torch.float32)
+    trainer = ShardedPretrainer(cfg)
+    loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+    ref = (loss, trainer.opt.last_grad_norm.item())
+    del trainer
+    print(f"[mesh] one-card f32 step at batch {PARITY_BATCH}, TF32 off: "
+          f"loss {ref[0]:.8f} grad norm {ref[1]:.8f} on {card_label}",
+          flush=True)
+    print("[mesh] result " + json.dumps(
+        {"device_count": n_cards, "one_card_f32": ref,
+         "multi_card": multi_card(n_cards, ref)}), flush=True)
+    return 0
+
+
+def mesh_train(card, card_label, ref_losses, ref_step_ms, ref_f32):
+    """Phase 6's training run through the DTensor path on a one-rank NCCL
+    mesh; then, on two cards or more, the multi-card f32 cases."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+    from ray_tpu_torch.ops import attention as tattn
+    from ray_tpu_torch.parallel import MeshConfig
+
+    n_cards = torch.cuda.device_count()
+    print(f"[mesh] torch.cuda.device_count()={n_cards}", flush=True)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        cfg = GPT2Config(remat=False)
+        trainer = ShardedPretrainer(cfg, MeshConfig())
+        if trainer.mesh is None or not all(
+                isinstance(p, DTensor) for p in trainer.model.parameters()):
+            raise AssertionError("the one-rank mesh did not take the "
+                                 "DTensor path")
+        batch = _train_batch(cfg, TRAIN_BATCH, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        losses, t_start = [], None
+        for i in range(TRAIN_STEPS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            losses.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t_start) / (TRAIN_STEPS - 2)
+        launches = _read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [t.item() for t in losses]
+        # what the kernels' alignment checks copied from the local shards
+        copied = {"fwd": (tattn.LAST_PLAN or {}).get("copied"),
+                  "bwd": (tattn.LAST_BWD_PLAN or {}).get("copied")}
+        wall, busy, _, _ = _trace_step(lambda: trainer.step(batch))
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    calls = cfg.n_layer * TRAIN_STEPS
+    want = {"flash_fwd": calls, "flash_fwd_combine": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkdv": calls, "flash_bwd_dq": calls,
+            "fused:flash_fwd_combine": 0, "fused:flash_bwd_delta": calls}
+    if launches != want:
+        raise AssertionError(f"mesh launches {launches}, expected {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if rel > BF16_LOSS_RTOL:
+        raise AssertionError(f"one-rank mesh losses {losses} against phase "
+                             f"6's {ref_losses}: rel {rel:.3e} > "
+                             f"{BF16_LOSS_RTOL:.3e}")
+    print(f"[mesh] GPT-2-small on a one-rank NCCL mesh (DTensor "
+          f"parameters), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} "
+          f"steps: losses {[round(x, 4) for x in losses]} (max rel "
+          f"{rel:.3e} to phase 6's, bar {BF16_LOSS_RTOL:.3e}); step_ms="
+          f"{step_s * 1e3:.3f} against phase 6's plain {ref_step_ms:.3f}; "
+          f"peak_memory_gb={peak_gb:.3f}; traced step wall_ms={wall:.3f} "
+          f"device_busy_ms={busy:.3f} (idle share {1 - busy / wall:.4f}); "
+          f"inputs the kernels copied {copied}; launches {launches} on "
+          f"{card_label}", flush=True)
+    multi = multi_card(n_cards, ref_f32)
+    return launches, {"step_ms": step_s * 1e3, "plain_step_ms": ref_step_ms,
+                      "peak_memory_gb": peak_gb, "losses": losses,
+                      "trace": {"wall_ms": wall, "busy_ms": busy,
+                                "idle_share": 1 - busy / wall},
+                      "copied": copied, "device_count": n_cards,
+                      "multi_card": multi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1061,6 +1480,12 @@ def main() -> int:
     ptxas = ptxas_report(build.build_logs)
     sass_check(libs)
 
+    label = f"{card} ({smi})"
+    if sys.argv[1:] == ["--multi-card"]:
+        rc = multi_card_only(label)
+        print(smi)
+        return rc
+
     # 3. kernels against their plain versions
     rows = attention_cases(card)
     combine_row = combine_case(card)
@@ -1071,14 +1496,17 @@ def main() -> int:
     model_forward(random_flax_params(GPT2Config.small(), seed=0))
 
     # 5. and 6. the main paths, each with its counters set to 0 just before
-    serve_launches = serve(f"{card} ({smi})")
-    train_launches, training = train(card, f"{card} ({smi})")
+    paths = {"serve": serve(label)}
+    paths["train"], training = train(card, label)
+    paths["train_llama"], training_llama = train_llama(card, label)
+    paths["mesh"], mesh = mesh_train(
+        card, label, training["losses"], training["step_ms"],
+        training["parity_f32"]["flash"])
 
     # 7. kernels line, card line, result line
     def launches(key):
-        return {"launches": serve_launches[key] + train_launches[key],
-                "launches_by_path": {"serve": serve_launches[key],
-                                     "train": train_launches[key]}}
+        return {"launches": sum(p[key] for p in paths.values()),
+                "launches_by_path": {k: p[key] for k, p in paths.items()}}
 
     def fused(key, into, err):
         """A kernel whose job another kernel does on the main paths: which
@@ -1086,8 +1514,8 @@ def main() -> int:
         there."""
         fkey = "fused:" + key
         return {"fused_into": into,
-                "fused_launches_by_path": {"serve": serve_launches[fkey],
-                                           "train": train_launches[fkey]},
+                "fused_launches_by_path": {k: p[fkey]
+                                           for k, p in paths.items()},
                 "fused_max_abs_err": err}
 
     main_row = next(r for r in rows if r["case"] == MAIN_PATH_CASE)
@@ -1143,6 +1571,8 @@ def main() -> int:
     backward[-1].update(op_ms=train_row["ms"],
                         op_bound_ms=train_row["bound_ms"], cases=bwd_rows)
     print("[train] result " + json.dumps(training), flush=True)
+    print("[train_llama] result " + json.dumps(training_llama), flush=True)
+    print("[mesh] result " + json.dumps(mesh), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

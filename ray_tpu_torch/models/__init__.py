@@ -1,8 +1,13 @@
-"""Model zoo of the port: GPT-2 (serving and training), its pretraining
-step, and the flax param converter."""
+"""Model zoo of the port: GPT-2 (serving and training), the Llama family
+(training), their pretraining step, and the flax param converters."""
 
-from ray_tpu_torch.models.convert import params_from_flax
+from ray_tpu_torch.models.convert import (
+    flax_paths,
+    llama_params_from_flax,
+    params_from_flax,
+)
 from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2LMModel, lm_loss
+from ray_tpu_torch.models.llama import LlamaConfig, LlamaLMModel
 from ray_tpu_torch.models.pretrain import (
     ShardedPretrainer,
     clip_by_global_norm,
@@ -13,7 +18,8 @@ from ray_tpu_torch.models.pretrain import (
     warmup_cosine_decay,
 )
 
-__all__ = ["GPT2Config", "GPT2LMModel", "ShardedPretrainer",
-           "clip_by_global_norm", "init_params", "lm_loss", "loss_fn",
+__all__ = ["GPT2Config", "GPT2LMModel", "LlamaConfig", "LlamaLMModel",
+           "ShardedPretrainer", "clip_by_global_norm", "flax_paths",
+           "init_params", "llama_params_from_flax", "lm_loss", "loss_fn",
            "make_optimizer", "params_from_flax", "train_step",
            "warmup_cosine_decay"]

@@ -9,6 +9,11 @@ backward (``attention_impl="flash"``) or the naive reference.  ``remat``
 recomputes each block in the backward (``torch.utils.checkpoint``), and
 ``lm_loss`` is the f32 next-token cross entropy.  Ring attention and MoE
 blocks wait for later slices.
+
+The parameters may be DTensors (``models/pretrain.ShardedPretrainer`` over
+a mesh): every op here has a DTensor sharding rule (the embedding lookup
+gathers a vocab-sharded table first, ``_embed``), and ``flash_attention``
+runs its kernels on each rank's local shard.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.attention import (
+    _is_dtensor,
+    flash_attention,
+    mha_reference,
+)
 
 # flax LayerNorm's default epsilon (torch's is 1e-5)
 LN_EPS = 1e-6
@@ -52,13 +61,13 @@ class GPT2Config:
     def __post_init__(self):
         if self.attention_impl == "ring":
             raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP queue A)")
+                "ring attention is not ported yet (ROADMAP.md A4)")
         if self.attention_impl not in ("flash", "reference"):
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r}")
         if self.moe_every > 0:
             raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP queue A)")
+                "MoE blocks are not ported yet (ROADMAP.md A5b)")
 
     @staticmethod
     def small() -> "GPT2Config":
@@ -73,6 +82,21 @@ class GPT2Config:
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _embed(table: torch.Tensor, ids, dtype: torch.dtype):
+    """The rows ``ids`` of ``table`` in ``dtype``.  A DTensor table whose
+    vocab dim is sharded (``wte`` over tp) has that dim gathered first:
+    DTensor's vocab-parallel lookup fails when the same op also reshards
+    the ids' batch dim (an IndexError in its mask buffer at tp=2 x
+    fsdp=2, torch 2.13), so the lookup runs on the whole vocabulary."""
+    table = table.to(dtype)
+    if _is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in table.placements])
+    return F.embedding(ids, table)
 
 
 def _layernorm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype):
@@ -134,10 +158,29 @@ class Block(nn.Module):
         return x + self.mlp(_layernorm(self.ln_2, x, dtype))
 
 
-# what remat_policy="dots" keeps from the forward (the JAX model's policy
-# saves its dots): the outputs of every matrix product
-_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         torch.ops.aten.bmm.default]
+# what remat_policy="dots" keeps from the forward: the outputs of the
+# matrix products without batch dims, as JAX's
+# dots_with_no_batch_dims_saveable does.  Attention's batched products
+# (bmm: the (B*H, S, S) logits among them) are recomputed.
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def run_blocks(blocks, x, config, *args):
+    """``x`` through ``blocks`` in turn (each called as ``block(x,
+    *args)``), each recomputed in the backward when ``config.remat`` is set
+    and autograd records: everything (``remat_policy="full"``) or all but
+    ``_DOTS``'s outputs (``"dots"``)."""
+    if config.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy: {config.remat_policy!r} "
+                         "(expected 'full' or 'dots')")
+    remat = config.remat and torch.is_grad_enabled()
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _DOTS)
+                  if config.remat_policy == "dots" else noop_context_fn)
+    for block in blocks:
+        x = (checkpoint(block, x, *args, use_reentrant=False,
+                        context_fn=context_fn) if remat else block(x, *args))
+    return x
 
 
 class GPT2LMModel(nn.Module):
@@ -158,19 +201,9 @@ class GPT2LMModel(nn.Module):
     def forward(self, input_ids):
         cfg = self.config
         S = input_ids.shape[1]
-        pos = torch.arange(S, device=input_ids.device)[None, :]
-        x = (self.wte.weight.to(cfg.dtype)[input_ids]
-             + self.wpe.weight.to(cfg.dtype)[pos])
-        if cfg.remat_policy not in ("full", "dots"):
-            raise ValueError(f"unknown remat_policy: {cfg.remat_policy!r} "
-                             "(expected 'full' or 'dots')")
-        remat = cfg.remat and torch.is_grad_enabled()
-        context_fn = (functools.partial(create_selective_checkpoint_contexts,
-                                        _DOTS)
-                      if cfg.remat_policy == "dots" else noop_context_fn)
-        for block in self.h:
-            x = (checkpoint(block, x, use_reentrant=False,
-                            context_fn=context_fn) if remat else block(x))
+        x = (_embed(self.wte.weight, input_ids, cfg.dtype)
+             + self.wpe.weight[:S].to(cfg.dtype))
+        x = run_blocks(self.h, x, cfg)
         x = _layernorm(self.ln_f, x, cfg.dtype)
         return _dense(self.lm_head, x, cfg.dtype)
 

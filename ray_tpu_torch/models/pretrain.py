@@ -1,4 +1,4 @@
-"""GPT pretraining step on one CUDA card: the port of
+"""Sharded GPT and Llama pretraining: the port of
 ``ray_tpu/models/pretrain.py``.
 
 The same program as the JAX trainer, in PyTorch idiom: ``init_params``
@@ -7,26 +7,46 @@ draws every parameter from the distribution flax's initialisers use for it;
 on a ``warmup_cosine_decay_schedule``; ``train_step`` runs the forward, the
 backward (the flash attention backward kernels on the card), the clip and
 the update, and hands back the loss as a 0-dim tensor on the device without
-waiting for it.  ``ShardedPretrainer`` owns the model and the optimizer.
+waiting for it.  ``ShardedPretrainer`` owns the model and the optimizer; the
+model family (GPT-2 or Llama) and its partition rules come as a pair from
+the config's type (``_model_family``).
 
-One device only.  A mesh over more devices waits for the multi-GPU slice
-(``ROADMAP.md`` A3), and sharded checkpoints for the train backend (A6).
+Over a mesh (``parallel/mesh.py``) of more than one rank, or whenever a
+process group is initialised, the parameters are DTensors laid out by the
+family's rules and the batch is sharded over (dp, fsdp); DTensor inserts
+the collectives GSPMD inserts in the JAX trainer (NCCL on the card, gloo on
+the CPU).  AdamW runs on each rank's local shards, which is exact because
+it is elementwise, and the clip takes the norm of the whole gradient.
+Sequence parallelism waits for ring attention (``ROADMAP.md`` A4), and
+sharded checkpoints for the train backend (A6).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.convert import params_from_flax
 from ray_tpu_torch.models.gpt2 import GPT2LMModel, lm_loss
+from ray_tpu_torch.ops.attention import _is_dtensor
+from ray_tpu_torch.parallel.mesh import active_mesh, as_mesh_config, build_mesh
+from ray_tpu_torch.parallel.sharding import (
+    gpt_partition_rules,
+    host_to_global,
+    llama_partition_rules,
+    match_partition_rules,
+    placements,
+)
 
 WARMUP = 100  # the JAX trainer's make_optimizer default
-MESH_AXES = ("dp", "fsdp", "tp", "sp", "ep", "pp", "dcn_dp", "dcn_pp")
+# the batch's layout: rows over (dp, fsdp), positions over sp
+BATCH_SPEC = (("dp", "fsdp"), "sp")
 
 
 def warmup_cosine_decay(step: int, lr: float, warmup: int,
@@ -42,30 +62,63 @@ def warmup_cosine_decay(step: int, lr: float, warmup: int,
     return lr * 0.5 * (1.0 + math.cos(math.pi * t / decay))
 
 
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float,
+                        replicas: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place on a list of gradients:
     scaled by ``max_norm / norm`` when the global norm is at least
     ``max_norm`` (no epsilon), left as they are otherwise.  Returns the
-    norm, a 0-dim tensor on the device; nothing waits for it."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm, a 0-dim tensor on the device; nothing waits for it.
+
+    With ``replicas``, ``grads`` are this rank's local shards of sharded
+    gradients and ``replicas[i]`` ranks of the default process group hold
+    each element of ``grads[i]``: the norm is that of the whole gradient,
+    each shard's sum of squares over its replicas, summed over the world in
+    one all-reduce."""
+    norms = torch._foreach_norm(grads)
+    if replicas is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        sq = torch.stack([n * n / r for n, r in zip(norms, replicas)]).sum()
+        dist.all_reduce(sq)
+        norm = sq.sqrt()
     torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0,
                                            max_norm / norm))
     return norm
+
+
+def _replicas(p) -> int:
+    """How many ranks hold each element of a DTensor's local shard: the
+    sizes of the mesh dims it is not sharded over."""
+    return int(np.prod([p.device_mesh.size(m)
+                        for m, pl in enumerate(p.placements)
+                        if not pl.is_shard()]))
 
 
 class Optimizer:
     """The optimizer of ``make_optimizer``: clip the global gradient norm to
     1.0, then AdamW at the schedule's rate for the update count *before*
     this update (optax evaluates its schedule at the old count, so the first
-    update has lr 0 and leaves the parameters as they are)."""
+    update has lr 0 and leaves the parameters as they are).
+
+    DTensor parameters (a sharded model) are updated through their local
+    shards: each gradient is first laid out as its parameter is (the
+    reduce-scatter or all-reduce over the axes the parameter is replicated
+    or sharded over), and AdamW's state lives beside each shard."""
 
     def __init__(self, params, lr: float, weight_decay: float, warmup: int,
                  total_steps: int):
         self.params = list(params)
+        self.sharded = any(_is_dtensor(p) for p in self.params)
+        with torch.no_grad():
+            self.local = ([p.to_local() for p in self.params]
+                          if self.sharded else self.params)
+        self.replicas = ([_replicas(p) for p in self.params]
+                         if self.sharded else None)
         self.lr, self.warmup, self.total_steps = lr, warmup, total_steps
         # decoupled decay p(1 - lr·wd) is optax's -lr·(update + wd·p), on
         # every parameter: optax's adamw is given no mask
-        self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.95),
+        self.adamw = torch.optim.AdamW(self.local, lr=0.0, betas=(0.9, 0.95),
                                        eps=1e-8, weight_decay=weight_decay)
         self.count = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
@@ -75,17 +128,25 @@ class Optimizer:
                                    self.total_steps)
 
     def step(self) -> None:
-        grads = [p.grad for p in self.params]
-        self.last_grad_norm = clip_by_global_norm(grads, 1.0)
+        if self.sharded:
+            for p, local in zip(self.params, self.local):
+                local.grad = p.grad.redistribute(
+                    p.device_mesh, p.placements).to_local()
+        grads = [p.grad for p in self.local]
+        self.last_grad_norm = clip_by_global_norm(grads, 1.0, self.replicas)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()
         self.count += 1
 
     def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
         self.adamw.zero_grad(set_to_none=True)
 
     def state_dict(self) -> Dict[str, Any]:
+        """The update count and AdamW's state (of the local shards, for a
+        sharded model)."""
         return {"count": self.count, "adamw": self.adamw.state_dict()}
 
 
@@ -95,77 +156,119 @@ def make_optimizer(params, lr: float = 3e-4, weight_decay: float = 0.1,
     return Optimizer(params, lr, weight_decay, warmup, total_steps)
 
 
+def _model_family(config):
+    """(model class, partition rules function) by config type: GPT-2 and
+    the Llama family share the whole sharded-pretrain stack."""
+    from ray_tpu_torch.models.llama import LlamaConfig, LlamaLMModel
+
+    if isinstance(config, LlamaConfig):
+        return LlamaLMModel, llama_partition_rules
+    return GPT2LMModel, gpt_partition_rules
+
+
 @torch.no_grad()
 def init_params(config, seed: int = 0, device=None
-                ) -> Tuple[GPT2LMModel, Dict[str, torch.Tensor]]:
-    """A ``GPT2LMModel`` on ``device`` and its parameters, each drawn on
-    the CPU from a generator seeded with ``seed`` from the distribution of
-    its flax initialiser: Dense kernels lecun-normal (a normal truncated to
-    two standard deviations, scaled to variance 1/fan_in), embeddings
-    normal with variance 1/E, biases 0, LayerNorm scales 1."""
-    model = GPT2LMModel(config, device=device)
+                ) -> Tuple[nn.Module, Dict[str, torch.Tensor]]:
+    """The config's model (``GPT2LMModel`` or ``LlamaLMModel``) on
+    ``device`` and its parameters, each drawn on the CPU from a generator
+    seeded with ``seed`` from the distribution of its flax initialiser:
+    Dense kernels lecun-normal (a normal truncated to two standard
+    deviations, scaled to variance 1/fan_in), embeddings normal with
+    variance 1/E, biases 0, LayerNorm and RMSNorm scales 1."""
+    cls, _ = _model_family(config)
+    model = cls(config, device=device)
     gen = torch.Generator().manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name in ("wte.weight", "wpe.weight"):
-            w = torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5
-        elif leaf == "bias":
-            w = torch.zeros(p.shape)
-        elif ".ln_" in f".{name}":
-            w = torch.ones(p.shape)
-        else:  # a Dense kernel, (out, in) here
-            std = p.shape[1] ** -0.5 / 0.87962566103423978
-            w = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std,
-                                            -2 * std, 2 * std, generator=gen)
-        p.copy_(w)
+    for mod in model.modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, nn.Embedding):
+                w = torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5
+            elif leaf == "bias":
+                w = torch.zeros(p.shape)
+            elif not isinstance(mod, nn.Linear):  # a norm's scale
+                w = torch.ones(p.shape)
+            else:  # a Dense kernel, (out, in) here
+                std = p.shape[1] ** -0.5 / 0.87962566103423978
+                w = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0,
+                                                std, -2 * std, 2 * std,
+                                                generator=gen)
+            p.copy_(w)
     return model, dict(model.named_parameters())
 
 
-def loss_fn(model: GPT2LMModel, batch: Mapping[str, torch.Tensor]):
+def loss_fn(model: nn.Module, batch: Mapping[str, torch.Tensor]):
     logits = model(batch["input_ids"])
     return lm_loss(logits, batch["targets"], batch.get("mask"))
 
 
-def train_step(model: GPT2LMModel, opt: Optimizer,
+def train_step(model: nn.Module, opt: Optimizer,
                batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """One forward, backward, clip and AdamW update; returns the loss
-    (0-dim, on the device, not synchronised)."""
+    (0-dim, on the device, not synchronised; for a sharded model the
+    global loss, on every rank)."""
     opt.zero_grad()
     loss = loss_fn(model, batch)
+    if _is_dtensor(loss):
+        loss = loss.full_tensor()
     loss.backward()
     opt.step()
     return loss.detach()
 
 
-def _mesh_devices(mesh_config) -> int:
-    """Devices a ``MeshConfig``-like object asks for; -1 (absorb the rest)
-    counts as the one device this trainer holds."""
-    n = 1
-    for axis in MESH_AXES:
-        size = getattr(mesh_config, axis, 1)
-        n *= 1 if size == -1 else size
-    return n
+def _refuse_sp(sp: int) -> None:
+    if sp > 1:
+        raise NotImplementedError(
+            f"sp={sp} needs ring attention, which is not ported yet "
+            f"(ROADMAP.md A4)")
 
 
 class ShardedPretrainer:
-    """Owns the model, the optimizer and the step on one CUDA card (or the
-    CPU when ``device="cpu"``)."""
+    """Owns the mesh, the model, the optimizer and the step.
+
+    ``mesh_config`` (this package's ``MeshConfig``, or any object with its
+    fields) is resolved over the world of the process group, one rank a
+    device; without an initialised group the world is this process alone
+    and the model stays plain tensors on ``device`` (the CUDA card unless
+    ``"cpu"`` is passed).  With a group, ``self.mesh`` is the
+    ``DeviceMesh`` of ``build_mesh``, the parameters are DTensors laid out
+    by the family's rules (``self.param_specs``, in the torch layout) on
+    its axes of more than one rank, and ``step`` takes the same global
+    batch on every rank."""
 
     def __init__(self, config, mesh_config=None, lr: float = 3e-4,
                  device=None, total_steps: int = 10_000,
                  params: Optional[Mapping] = None):
-        if mesh_config is not None and _mesh_devices(mesh_config) > 1:
-            raise NotImplementedError(
-                f"ShardedPretrainer runs on one device; {mesh_config} spans "
-                f"more: multi-GPU meshes are not ported yet (ROADMAP.md A3)")
+        mesh_config = as_mesh_config(mesh_config)
+        grouped = dist.is_available() and dist.is_initialized()
+        # the JAX trainer switches to ring attention over sp: refuse it
+        # before the mesh is resolved, and after, for an sp of -1
+        _refuse_sp(mesh_config.sp)
+        _refuse_sp(mesh_config.resolve(
+            dist.get_world_size() if grouped else 1)["sp"])
         self.config = config
         self.device = resolve_device(device)
         self.model, _ = init_params(config, device=self.device)
         if params is not None:
             self.model.load_state_dict(params_from_flax(params))
         self.model.train()
+        self.param_specs = match_partition_rules(
+            _model_family(config)[1](), self.model)
+        self.mesh = self._dmesh = None
+        if grouped:
+            self.mesh = build_mesh(mesh_config, self.device)
+            self._dmesh = active_mesh(self.mesh)
+            self._distribute()
         self.opt = make_optimizer(self.model.parameters(), lr,
                                   total_steps=total_steps)
+
+    @torch.no_grad()
+    def _distribute(self) -> None:
+        """Every parameter replaced by the DTensor of its spec; each rank
+        keeps its own shard of the value all ranks drew from one seed."""
+        for prefix, mod in self.model.named_modules():
+            for leaf, p in list(mod.named_parameters(recurse=False)):
+                name = f"{prefix}.{leaf}" if prefix else leaf
+                mod.register_parameter(leaf, nn.Parameter(host_to_global(
+                    p.detach(), self._dmesh, self.param_specs[name])))
 
     @property
     def state(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
@@ -181,16 +284,18 @@ class ShardedPretrainer:
             "sharded checkpoints are not ported yet (ROADMAP.md A6)")
 
     def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        """The batch's ``input_ids``, ``targets`` and ``mask`` on the
-        device (numpy arrays or tensors; ids as int64)."""
+        """The batch's ``input_ids`` and ``targets`` as int64 on the device
+        (numpy arrays or tensors), rows over (dp, fsdp) on a mesh.  Other
+        keys are dropped, as the JAX trainer's ``batch_sharding`` drops
+        them: a ``mask`` does not reach the loss."""
         out = {}
-        for key in ("input_ids", "targets", "mask"):
-            if key not in batch:
-                continue
-            val = torch.as_tensor(batch[key])
-            if key != "mask":
-                val = val.long()
-            out[key] = val.to(self.device, non_blocking=True)
+        for key in ("input_ids", "targets"):
+            val = torch.as_tensor(batch[key]).long()
+            if self._dmesh is None:
+                out[key] = val.to(self.device, non_blocking=True)
+            else:
+                out[key] = host_to_global(
+                    val, self._dmesh, placements(BATCH_SPEC, self._dmesh))
         return out
 
     def step(self, batch: Mapping[str, Any]) -> torch.Tensor:

@@ -31,6 +31,11 @@ Counterpart of ``ray_tpu/ops/attention.py``:
   and is differentiable: ``_FlashAttention`` is the ``custom_vjp`` of
   :251-273, forward by ``flash_attention_fwd`` and backward by
   ``flash_attention_bwd``.
+
+``flash_attention`` and ``mha_reference`` also take DTensors (a model
+sharded over a mesh): ``_on_local_shards`` lays q, k and v out with the
+batch over dp and fsdp and the heads over tp, and runs the function on each
+rank's local shard, as ``shard_map`` would.  The kernels see plain tensors.
 """
 
 from __future__ import annotations
@@ -85,11 +90,47 @@ _num_sms: Dict[int, int] = {}
 _merge_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
+# ========================================================= on a mesh
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _on_local_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` for DTensors of (B, H, S, D): each rank runs
+    ``fn`` on its local shard with the batch over dp and fsdp and the heads
+    over tp (other mesh dims replicate); the output comes back as a DTensor
+    in that layout.  Differentiable: the gradients return in the same
+    layout.  A sequence split (sp) needs ring attention (ROADMAP.md A4)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    by_axis = {"dp": Shard(0), "fsdp": Shard(0), "tp": Shard(1)}
+    layout = []
+    for name, size in zip(mesh.mesh_dim_names, mesh.mesh.shape):
+        if name == "sp" and size > 1:
+            raise NotImplementedError(
+                "attention over a sequence split needs ring attention, not "
+                "ported yet (ROADMAP.md A4)")
+        layout.append(by_axis.get(name, Replicate()))
+    local = [t.redistribute(mesh, layout).to_local() for t in (q, k, v)]
+    o = fn(*local, **kw)
+    return DTensor.from_local(o, mesh, layout, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape, device="meta")
+                              .stride())
+
+
 # =========================================================== reference
 def mha_reference(q, k, v, *, causal: bool = True,
                   sm_scale: Optional[float] = None, q_offset: int = 0,
                   k_offset: int = 0):
     """Naive attention; ground truth for kernels. q,k,v: (B, H, S, D)."""
+    if _is_dtensor(q):
+        return _on_local_shards(mha_reference, q, k, v, causal=causal,
+                                sm_scale=sm_scale, q_offset=q_offset,
+                                k_offset=k_offset)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
@@ -758,7 +799,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     k_offset: int = 0, block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K):
     """Blockwise (flash) attention. q,k,v: (B, H, S, D) -> (B, H, S, D).
-    Differentiable: the backward is ``flash_attention_bwd``."""
+    Differentiable: the backward is ``flash_attention_bwd``.  DTensors run
+    the kernels on each rank's local shard (``_on_local_shards``)."""
+    if _is_dtensor(q):
+        return _on_local_shards(flash_attention, q, k, v, causal=causal,
+                                sm_scale=sm_scale, q_offset=q_offset,
+                                k_offset=k_offset, block_q=block_q,
+                                block_k=block_k)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, causal, float(sm_scale),

@@ -206,13 +206,89 @@ def test_trainer_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ShardedPretrainer(cfg)
-    with pytest.raises(NotImplementedError, match="A3"):
-        ShardedPretrainer(cfg, MeshConfig(dp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        ShardedPretrainer(cfg, MeshConfig(dp=-1, tp=2), device="cpu")
+    # the JAX trainer switches to ring attention over sp
+    with pytest.raises(NotImplementedError, match="A4"):
+        ShardedPretrainer(cfg, MeshConfig(dp=-1, sp=2), device="cpu")
+    # without a process group the world is this process: a mesh of two
+    # does not resolve, as JAX's MeshConfig.resolve refuses it
+    for mesh in (MeshConfig(dp=2), MeshConfig(dp=-1, tp=2)):
+        with pytest.raises(ValueError, match="covers|divisible") as err:
+            ShardedPretrainer(cfg, mesh, device="cpu")
+        with pytest.raises(ValueError) as jerr:
+            mesh.resolve(1)
+        assert str(err.value) == str(jerr.value)
     trainer = ShardedPretrainer(cfg, dataclasses.replace(MeshConfig(),
                                                          dp=1),
                                 device="cpu")
+    assert trainer.mesh is None  # no process group: plain tensors
     for fn in (trainer.save_checkpoint, trainer.restore_checkpoint):
         with pytest.raises(NotImplementedError, match="A6"):
             fn("/nonexistent")
+
+
+def test_trainer_drops_the_mask_as_the_jax_trainer_does():
+    """The JAX trainer's shard_batch keeps only the keys of its
+    batch_sharding (input_ids, targets), so a batch's mask never reaches
+    its loss; the port's does the same."""
+    cfg = JConfig(**TINY, dtype=jnp.float32, remat=False)
+    jtrainer = jpre.ShardedPretrainer(cfg, MeshConfig(dp=-1),
+                                      devices=jax.devices()[:1], lr=0.1,
+                                      total_steps=10)
+    init = jax.tree_util.tree_map(np.array, jtrainer.state[0])
+    trainer = ShardedPretrainer(
+        GPT2Config(**TINY, dtype=torch.float32, remat=False),
+        MeshConfig(dp=-1), lr=0.1, device="cpu", total_steps=10,
+        params=init)
+    batch = _batch(b=4, s=64, seed=0)
+    mask = np.zeros((4, 64), np.float32)
+    mask[:, :8] = 1.0  # keeps the first 8 positions
+    assert set(trainer.shard_batch({**batch, "mask": mask})) == {
+        "input_ids", "targets"}
+    want = float(jtrainer.step({**batch, "mask": mask}))
+    got = trainer.step({**batch, "mask": mask}).item()
+    np.testing.assert_allclose(want, 6.794787, rtol=1e-4)
+    np.testing.assert_allclose(got, 6.794787, rtol=1e-4)
+    # the mask, had it reached the loss, would have moved it
+    masked = loss_fn(trainer.model, {
+        **{k: torch.from_numpy(v) for k, v in batch.items()},
+        "mask": torch.from_numpy(mask)}).item()
+    assert abs(masked - got) > 1e-2, masked
+
+
+def test_remat_dots_saves_no_batched_product():
+    """remat_policy="dots" saves what JAX's dots_with_no_batch_dims_saveable
+    saves: the unbatched products (mm, addmm) are not run again in the
+    backward, the batched ones (bmm: reference attention's (B*H, S, S)
+    logits and its output) are, as under "full"."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] += 1
+            return func(*args, **(kwargs or {}))
+
+    aten = torch.ops.aten
+    batch = _batch(b=2, s=40, seed=3)
+    ids, tgt = (torch.from_numpy(batch[k]) for k in ("input_ids", "targets"))
+    counts = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        cfg = GPT2Config(**TINY, dtype=torch.float32, remat=remat,
+                         remat_policy=policy, attention_impl="reference")
+        model, _ = init_params(cfg, seed=4, device="cpu")
+        loss = lm_loss(model(ids), tgt)
+        with Log() as log:
+            loss.backward()
+        counts[remat and policy] = log.ops
+    plain, full, dots = counts[False], counts["full"], counts["dots"]
+    # every bmm of the forward runs again in the dots backward
+    assert dots[aten.bmm.default] == full[aten.bmm.default] \
+        > plain[aten.bmm.default]
+    # the unbatched products come from the forward's saved outputs
+    assert full[aten.addmm.default] > 0 == dots[aten.addmm.default]
+    assert dots[aten.mm.default] == plain[aten.mm.default]
