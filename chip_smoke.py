@@ -23,7 +23,7 @@ Phases, each fatal on failure:
      serving decode's partials;
   3b. backward kernels (dQ, which also writes delta, then dK/dV) against
      flash_attention_bwd_plain on the forward kernel's o and lse, at the
-     training path's shape and nine more cases: the variant each took
+     training path's shape and ten more cases: the variant each took
      (tensor cores for bf16 at D 64 and 128), nothing copied, each result
      repeated bit for bit, the delta dQ wrote bit for bit the standalone
      delta kernel's, no delta launch; at the training shape and at D = 128
@@ -62,12 +62,26 @@ Phases, each fatal on failure:
      phase 6's run again through the DTensor path on a one-rank NCCL mesh
      (losses within phase 6's bf16 bar of phase 6's, launches as phase 6,
      step time beside phase 6's, a traced step's idle share); where the
-     machine has the cards, NCCL ranks take phase 6's f32 step under dp=2
-     and tp=2 (two cards) and tp=2 x fsdp=2 (four cards), each rank within
-     1e-5 (loss) and 1e-4 (gradient norm) relative of the one-card step;
-     a line for each case that did not run.  ``python3 chip_smoke.py
-     --multi-card`` builds the kernels and runs only the one-card f32 step
-     and these cases;
+     machine has the cards, NCCL ranks take phase 6's f32 step under dp=2,
+     tp=2 and sp=2 (two cards; sp through ring attention) and tp=2 x
+     fsdp=2 and sp=2 x tp=2 (four cards), each rank within 1e-5 (loss) and
+     1e-4 (gradient norm) relative of the one-card step, and phase 6's
+     bf16 run under sp=2 (two cards: losses within phase 6's bf16 bar,
+     step time beside phase 6's); a line for each case that did not run.
+     ``python3 chip_smoke.py --multi-card`` builds the kernels and runs
+     only the one-card f32 step and bf16 run and these cases;
+  6d. ring attention on one card (a main path: NCCL puts no two ranks on
+     one card, so one process runs every ring position's steps, the
+     functions ``ring_attention`` runs on each rank): GPT-2-small's and
+     Llama's training shapes in bf16 at sp 2 and 4, an f32 case and a
+     bf16 case at D 32 (the CUDA-core kernels) at sp 4, forward and
+     backward against whole-sequence flash; f32 within
+     1e-5 (o) and 1e-4 (dq, dk, dv) of it relative to its largest
+     element, bf16 at most 2x as far as whole-sequence bf16 flash from the
+     f32 result of f32 upcasts; every counter set to 0 just before and
+     read just after (flash_fwd, dQ and dK/dV sp(sp+1)/2 each, no combine
+     or delta launch); the device time summed over the positions beside
+     whole-sequence flash's;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -124,18 +138,23 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 20, part=None):
+def _device_ms(fn, iters: int = 20, part=None, launches: int = 0):
     """Device time per call: the summed time of every kernel ``fn`` runs on
     the card, traced by torch.profiler (CUPTI), over ``iters`` calls.  With
     ``part``, also the share of the kernels whose name holds ``part`` (a
-    name, or a tuple of names for a dict of shares)."""
+    name, or a tuple of names for a dict of shares).  With ``launches``,
+    the number of those kernels' launches a call: a trace that holds fewer
+    (CUPTI dropped records) is taken again, and after three such traces
+    both numbers are None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = part if isinstance(part, tuple) else (part,) if part else ()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    # CUPTI now and then hands back an empty trace; the work is the same
-    # each time, so trace it again (at most three times)
+    # CUPTI now and then hands back an empty trace, or one without some of
+    # the launches; the work is the same each time, so trace it again (at
+    # most three times)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -144,9 +163,16 @@ def _device_ms(fn, iters: int = 20, part=None):
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         us = sum(e.self_device_time_total for e in events)
-        if us > 0:
+        traced = sum(e.count for e in events
+                     if any(name in e.key for name in names))
+        if us > 0 and traced >= launches * iters:
             break
     else:
+        if launches:
+            print(f"[timing] the profiler traced {traced} of "
+                  f"{launches * iters} launches three times: not measured",
+                  flush=True)
+            return None, None
         if part is not None:
             raise RuntimeError("the profiler traced no device time")
         # the whole call's time on the card's stream stands in for the sum
@@ -431,6 +457,8 @@ BWD_CASES = [
      0, 0),
     ("chunk_offset_bf16", torch.bfloat16, 1, 12, 128, 512, 64, True, 384, 0),
     ("fully_masked_bf16", torch.bfloat16, 1, 12, 64, 64, 64, True, 0, 1000),
+    # bf16 on the CUDA-core kernels (D 32)
+    ("d32_causal_bf16", torch.bfloat16, 2, 12, 512, 512, 32, True, 0, 0),
 ]
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # the training path's own shape
@@ -1249,11 +1277,161 @@ def train_llama(card, card_label):
                       "parity_bf16": par, "parity_f32": f32}
 
 
+# ------------------------------------------------------------ phase 6d
+RING_CASES = [
+    # name, dtype, B, H, S, D, sp: GPT-2-small's and Llama's training
+    # shapes (phases 6 and 6b), and an f32 case for the exact bar
+    ("gpt2_train_bf16_sp2", torch.bfloat16, 16, 12, 1024, 64, 2),
+    ("gpt2_train_bf16_sp4", torch.bfloat16, 16, 12, 1024, 64, 4),
+    ("llama_train_bf16_sp2", torch.bfloat16, 8, 12, 2048, 64, 2),
+    ("llama_train_bf16_sp4", torch.bfloat16, 8, 12, 2048, 64, 4),
+    ("train_f32_sp4", torch.float32, 4, 12, 1024, 64, 4),
+    # bf16 at D 32, on the CUDA-core kernels, which round only their
+    # outputs: where the partials' extra rounding shows most
+    ("d32_bf16_sp4", torch.bfloat16, 8, 12, 1024, 32, 4),
+]
+# f32, relative to the largest element of the whole-sequence result: o,
+# then dq, dk and dv.  The merges add a few f32 roundings to the kernels'
+# exact f32 arithmetic.
+RING_F32_BARS = (1e-5, 1e-4)
+# bf16: the ring rounds each chunk's o, dq, dk and dv to bf16 before its
+# f32 merge or sum, once more than whole-sequence flash; against the f32
+# result of f32 upcasts it may be at most this many times as far as flash
+# in bf16
+RING_BF16_FACTOR = 2.0
+RING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+
+
+def _ms_text(times, key) -> str:
+    dev, kern = times[key + "_ms"], times[key + "_kernel_ms"]
+    return ("not measured" if dev is None else f"{dev:.4f} ({kern:.4f})") \
+        + f" / {times[key + '_stream_ms']:.4f}"
+
+
+def ring_one_card(card_label):
+    """Ring attention's steps on one card: for each ring position r and
+    step i, in the ring's order, the same ``_ring_fwd_step`` (chunk
+    attention on the flash forward kernel, ``_online_merge``) and
+    ``_ring_bwd_step`` (the flash backward kernels with the merged o and
+    lse) that ``ring_attention`` runs on rank r, through
+    ``ring_attention_fwd_unrolled`` / ``_bwd_unrolled``; against
+    whole-sequence flash (``flash_attention_fwd`` / ``_bwd``) on the same
+    inputs.  Every counter is set to 0 just before the ring's forward and
+    backward and read just after: flash_fwd, dQ and dK/dV sp(sp+1)/2 each a
+    case (the steps causality hides launch nothing), no combine or delta
+    launch."""
+    from ray_tpu_torch.ops.attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        ring_attention_bwd_unrolled,
+        ring_attention_fwd_unrolled,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, total = [], None
+    for name, dtype, B, H, S, D, sp in RING_CASES:
+        q, k, v, g = (torch.randn(B, H, S, D, generator=gen, device="cuda")
+                      .to(dtype) for _ in range(4))
+        o_ref, lse_ref = flash_attention_fwd(q, k, v)
+        d_ref = flash_attention_bwd(q, k, v, o_ref, lse_ref, g)
+        torch.cuda.synchronize()
+        _zero_counts()
+        o, lse = ring_attention_fwd_unrolled(q, k, v, sp=sp)
+        grads = ring_attention_bwd_unrolled(q, k, v, o, lse, g, sp=sp)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        steps = sp * (sp + 1) // 2
+        want = {key: 0 for key in launches}
+        want.update({key: steps for key in RING_KERNELS})
+        want["fused:flash_bwd_delta"] = steps
+        if launches != want:
+            raise AssertionError(f"{name}: ring launches {launches}, "
+                                 f"expected {want}")
+        total = launches if total is None else {
+            key: total[key] + n for key, n in launches.items()}
+        got = {"o": o, "dq": grads[0], "dk": grads[1], "dv": grads[2]}
+        if dtype == torch.float32:
+            ref = {"o": o_ref, "dq": d_ref[0], "dk": d_ref[1],
+                   "dv": d_ref[2]}
+            errs = {key: ((got[key] - ref[key]).abs().max()
+                          / ref[key].abs().max()).item() for key in got}
+            bars = {key: RING_F32_BARS[key != "o"] for key in got}
+            bad = {key: e for key, e in errs.items() if not e <= bars[key]}
+            accuracy = {"rel_err": errs, "bars": bars}
+        else:
+            # the f32 result of f32 upcasts, on the f32 kernels
+            q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+            o32, lse32 = flash_attention_fwd(q32, k32, v32)
+            exact = dict(zip(("o", "dq", "dk", "dv"), (o32, *(
+                flash_attention_bwd(q32, k32, v32, o32, lse32, g32)))))
+            flash = {"o": o_ref, "dq": d_ref[0], "dk": d_ref[1],
+                     "dv": d_ref[2]}
+            errs = {key: ((got[key].float() - exact[key]).abs().max().item(),
+                          (flash[key].float() - exact[key]).abs().max()
+                          .item()) for key in got}
+            bad = {key: e for key, e in errs.items()
+                   if not e[0] <= RING_BF16_FACTOR * e[1]}
+            accuracy = {"ring_vs_flash_err": errs,
+                        "factor": RING_BF16_FACTOR}
+            del q32, k32, v32, g32, o32, lse32, exact
+        if bad or not all(bool(torch.isfinite(t).all())
+                          for t in got.values()):
+            raise AssertionError(f"{name}: the ring misses its bar: {bad} "
+                                 f"({accuracy})")
+        # device time from the trace (every kernel the call runs, and the
+        # flash kernels' share), its launches checked; and the time a call
+        # takes on the stream (CUDA events), which also holds the host's
+        # gaps between the one-process schedule's many small launches
+        times = {}
+        for key, n, fn in (
+                ("ring_fwd", steps, lambda: ring_attention_fwd_unrolled(
+                    q, k, v, sp=sp)),
+                ("ring_bwd", 2 * steps, lambda: ring_attention_bwd_unrolled(
+                    q, k, v, o, lse, g, sp=sp)),
+                ("flash_fwd", 1, lambda: flash_attention_fwd(q, k, v)),
+                ("flash_bwd", 2, lambda: flash_attention_bwd(
+                    q, k, v, o_ref, lse_ref, g))):
+            times[key + "_ms"], share = _device_ms(
+                fn, iters=10, part=RING_KERNELS, launches=n)
+            times[key + "_kernel_ms"] = (None if share is None
+                                         else sum(share.values()))
+            times[key + "_stream_ms"] = _time_ms(fn, iters=10)
+        rows.append({"case": name, "shape": [B, H, S, D], "sp": sp,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "launches": launches, **accuracy, **times})
+        print(f"[ring] {name} (B={B}, H={H}, S={S}, D={D}, sp={sp}, "
+              f"causal): launches flash_fwd/dq/dkdv "
+              f"{launches['flash_fwd']}/{launches['flash_bwd_dq']}/"
+              f"{launches['flash_bwd_dkdv']} (sp(sp+1)/2 = {steps}), "
+              f"combine {launches['flash_fwd_combine']}, delta "
+              f"{launches['flash_bwd_delta']}; "
+              + (" ".join(f"{k} rel {e:.3e} (bar {bars[k]})"
+                          for k, e in errs.items())
+                 if dtype == torch.float32 else
+                 " ".join(f"{k} {a:.3e}/{b:.3e}" for k, (a, b) in
+                          errs.items())
+                 + f" (ring/flash error against the f32 result of f32 "
+                 f"upcasts, bar {RING_BF16_FACTOR}x)")
+              + "; ms summed over every position, device (the flash "
+              "kernels' share) / on the stream: ring forward "
+              + _ms_text(times, "ring_fwd") + " against whole-sequence "
+              "flash " + _ms_text(times, "flash_fwd") + ", ring backward "
+              + _ms_text(times, "ring_bwd") + " against "
+              + _ms_text(times, "flash_bwd") + f" on {card_label}",
+              flush=True)
+        del q, k, v, g, o, lse, grads, got, o_ref, lse_ref, d_ref
+    return total, rows
+
+
 # ------------------------------------------------------------ phase 6c
 MESH_TIMEOUT_S = 300
 # (ranks, mesh): each runs where the machine has that many cards
 MULTI_CARD_CASES = ((2, {"dp": 2}), (2, {"dp": 1, "tp": 2}),
-                    (4, {"dp": 1, "fsdp": 2, "tp": 2}))
+                    (2, {"dp": 1, "sp": 2}),
+                    (4, {"dp": 1, "fsdp": 2, "tp": 2}),
+                    (4, {"dp": 1, "sp": 2, "tp": 2}))
+# phase 6's bf16 run under a sequence split, where two cards exist
+BF16_SP_CASE = (2, {"dp": 1, "sp": 2})
 
 
 def _free_port() -> int:
@@ -1264,9 +1442,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _mesh_rank(rank, world, port, mesh_kw, results):
+def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False):
     """One NCCL rank of a multi-card case: phase 6's f32 step (batch
-    PARITY_BATCH, the first parity batch) under ``mesh_kw``."""
+    PARITY_BATCH, the first parity batch) under ``mesh_kw``; with
+    ``bf16_run``, phase 6's bf16 run (10 steps at batch TRAIN_BATCH x
+    TRAIN_SEQ) instead, its losses and the ms a step of steps 3-10."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1280,9 +1460,26 @@ def _mesh_rank(rank, world, port, mesh_kw, results):
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
+        if bf16_run:
+            cfg = GPT2Config(remat=False)
+            trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw))
+            batch = _train_batch(cfg, TRAIN_BATCH, 0)
+            losses, t_start = [], None
+            for i in range(TRAIN_STEPS):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t_start = time.perf_counter()
+                losses.append(trainer.step(batch))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t_start) * 1e3 / (
+                TRAIN_STEPS - 2)
+            results.put((rank, [t.item() for t in losses], step_ms))
+            return
         cfg = GPT2Config(remat=False, dtype=torch.float32)
         trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw))
-        loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+        # an error in the backward names the forward op it came from
+        with torch.autograd.detect_anomaly(check_nan=False):
+            loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
         # what the kernels' alignment checks copied from the local shards
         copied = {"fwd": (tattn.LAST_PLAN or {}).get("copied"),
                   "bwd": (tattn.LAST_BWD_PLAN or {}).get("copied")}
@@ -1291,18 +1488,17 @@ def _mesh_rank(rank, world, port, mesh_kw, results):
         dist.destroy_process_group()
 
 
-def _multi_card(world, mesh_kw, ref):
-    """``world`` NCCL ranks, one a card, take the f32 step under
-    ``mesh_kw``; each rank's loss and gradient norm against the one-card
-    step ``ref``.  The gang is killed, and the phase fails, after
-    MESH_TIMEOUT_S."""
+def _gang(world, mesh_kw, bf16_run=False):
+    """What each of ``world`` NCCL ranks, one a card, put on the queue
+    under ``mesh_kw`` (``_mesh_rank``), in rank order.  The gang is
+    killed, and the phase fails, after MESH_TIMEOUT_S."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, mesh_kw,
-                                                  results))
+                                                  results, bf16_run))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1325,6 +1521,13 @@ def _multi_card(world, mesh_kw, ref):
         raise AssertionError(f"multi-card case {mesh_kw}: ranks gave "
                              f"{got}, exit codes "
                              f"{[p.exitcode for p in procs]}")
+    return sorted(got)
+
+
+def _multi_card(world, mesh_kw, ref):
+    """The f32 step under ``mesh_kw``; each rank's loss and gradient norm
+    against the one-card step ``ref``."""
+    got = _gang(world, mesh_kw)
     (loss1, norm1) = ref
     for rank, loss, norm, _ in got:
         if not (abs(loss - loss1) <= F32_LOSS_RTOL * abs(loss1)
@@ -1332,32 +1535,69 @@ def _multi_card(world, mesh_kw, ref):
             raise AssertionError(f"multi-card {mesh_kw} rank {rank}: loss "
                                  f"{loss} grad norm {norm} against the one-"
                                  f"card step's {loss1}, {norm1}")
-    return sorted(got)
+    return got
 
 
-def multi_card(n_cards, ref_f32) -> dict:
+def multi_card(n_cards, ref_f32, ref_bf16) -> dict:
     """Every case of MULTI_CARD_CASES that ``n_cards`` cards can hold,
-    against the one-card f32 step ``ref_f32`` (loss, gradient norm); a
-    line for those that did not run."""
-    multi = {}
+    against the one-card f32 step ``ref_f32`` (loss, gradient norm); then
+    phase 6's bf16 run under BF16_SP_CASE against ``ref_bf16`` (its losses
+    and step ms on one card); a line for each case that did not run.
+    Every case runs; the phase fails at the end if any did."""
+    multi, failed = {}, []
     for world, mesh_kw in MULTI_CARD_CASES:
         if world > n_cards:
             print(f"[mesh] {n_cards} card(s): the {world}-card case "
                   f"{mesh_kw} did not run", flush=True)
             continue
-        got = _multi_card(world, mesh_kw, ref_f32)
+        try:
+            got = _multi_card(world, mesh_kw, ref_f32)
+        except AssertionError as err:
+            failed.append(str(err))
+            print(f"[mesh] {world} NCCL ranks, {mesh_kw}: FAILED: {err}",
+                  flush=True)
+            continue
         multi[json.dumps(mesh_kw)] = got
         print(f"[mesh] {world} NCCL ranks, {mesh_kw}, f32 step at batch "
               f"{PARITY_BATCH}: (rank, loss, grad norm, inputs the kernels "
               f"copied) {got} against the one-card step's {ref_f32} (bars "
               f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
+    world, mesh_kw = BF16_SP_CASE
+    if world > n_cards:
+        print(f"[mesh] {n_cards} card(s): phase 6's bf16 run under {mesh_kw}"
+              f" did not run", flush=True)
+    else:
+        ref_losses, ref_step_ms = ref_bf16
+        try:
+            got = _gang(world, mesh_kw, bf16_run=True)
+            for rank, losses, _ in got:
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(losses, ref_losses))
+                if rel > BF16_LOSS_RTOL:
+                    raise AssertionError(
+                        f"bf16 run under {mesh_kw} rank {rank}: losses "
+                        f"{losses} against one card's {ref_losses}: rel "
+                        f"{rel:.3e} > {BF16_LOSS_RTOL:.3e}")
+        except AssertionError as err:
+            failed.append(str(err))
+            print(f"[mesh] bf16 run under {mesh_kw}: FAILED: {err}",
+                  flush=True)
+        else:
+            multi["bf16 " + json.dumps(mesh_kw)] = got
+            print(f"[mesh] {world} NCCL ranks, {mesh_kw}, phase 6's bf16 "
+                  f"run, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} "
+                  f"steps: (rank, losses, step_ms) {got} against one card's "
+                  f"losses {ref_losses} (bar {BF16_LOSS_RTOL:.3e}) and "
+                  f"step_ms {ref_step_ms:.3f}", flush=True)
+    if failed:
+        raise AssertionError("multi-card cases failed: " + "; ".join(failed))
     return multi
 
 
 def multi_card_only(card_label) -> int:
-    """``chip_smoke.py --multi-card``: phase 6's f32 flash step on card 0,
-    then the multi-card cases against it, and nothing else (the kernels
-    are built first).  Needs two cards or more."""
+    """``chip_smoke.py --multi-card``: phase 6's f32 flash step and bf16
+    run on card 0, then the multi-card cases against them, and nothing
+    else (the kernels are built first).  Needs two cards or more."""
     from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
 
     n_cards = torch.cuda.device_count()
@@ -1372,15 +1612,30 @@ def multi_card_only(card_label) -> int:
     print(f"[mesh] one-card f32 step at batch {PARITY_BATCH}, TF32 off: "
           f"loss {ref[0]:.8f} grad norm {ref[1]:.8f} on {card_label}",
           flush=True)
+    trainer = ShardedPretrainer(GPT2Config(remat=False))
+    batch = _train_batch(trainer.config, TRAIN_BATCH, 0)
+    losses, t_start = [], None
+    for i in range(TRAIN_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    ref_bf16 = ([t.item() for t in losses],
+                (time.perf_counter() - t_start) * 1e3 / (TRAIN_STEPS - 2))
+    del trainer
+    print(f"[mesh] one-card bf16 run: losses {ref_bf16[0]} step_ms "
+          f"{ref_bf16[1]:.3f} on {card_label}", flush=True)
     print("[mesh] result " + json.dumps(
         {"device_count": n_cards, "one_card_f32": ref,
-         "multi_card": multi_card(n_cards, ref)}), flush=True)
+         "one_card_bf16": ref_bf16,
+         "multi_card": multi_card(n_cards, ref, ref_bf16)}), flush=True)
     return 0
 
 
 def mesh_train(card, card_label, ref_losses, ref_step_ms, ref_f32):
     """Phase 6's training run through the DTensor path on a one-rank NCCL
-    mesh; then, on two cards or more, the multi-card f32 cases."""
+    mesh; then, on two cards or more, the multi-card cases."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -1442,7 +1697,7 @@ def mesh_train(card, card_label, ref_losses, ref_step_ms, ref_f32):
           f"device_busy_ms={busy:.3f} (idle share {1 - busy / wall:.4f}); "
           f"inputs the kernels copied {copied}; launches {launches} on "
           f"{card_label}", flush=True)
-    multi = multi_card(n_cards, ref_f32)
+    multi = multi_card(n_cards, ref_f32, (ref_losses, ref_step_ms))
     return launches, {"step_ms": step_s * 1e3, "plain_step_ms": ref_step_ms,
                       "peak_memory_gb": peak_gb, "losses": losses,
                       "trace": {"wall_ms": wall, "busy_ms": busy,
@@ -1502,6 +1757,8 @@ def main() -> int:
     paths["mesh"], mesh = mesh_train(
         card, label, training["losses"], training["step_ms"],
         training["parity_f32"]["flash"])
+    # 6d. ring attention's steps, each ring position in turn
+    paths["ring"], ring = ring_one_card(label)
 
     # 7. kernels line, card line, result line
     def launches(key):
@@ -1573,6 +1830,7 @@ def main() -> int:
     print("[train] result " + json.dumps(training), flush=True)
     print("[train_llama] result " + json.dumps(training_llama), flush=True)
     print("[mesh] result " + json.dumps(mesh), flush=True)
+    print("[ring] result " + json.dumps(ring), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,15 +5,18 @@ blocks, tanh-GELU MLP, untied ``lm_head`` without bias), so a flax param tree
 loads through ``models/convert.params_from_flax``.  Parameters are f32 and
 trainable, and compute runs in ``config.dtype`` (bf16 by default), as flax's
 ``dtype=`` does.  Attention is the hand-written flash kernel forward and
-backward (``attention_impl="flash"``) or the naive reference.  ``remat``
-recomputes each block in the backward (``torch.utils.checkpoint``), and
-``lm_loss`` is the f32 next-token cross entropy.  Ring attention and MoE
-blocks wait for later slices.
+backward (``attention_impl="flash"``), ring attention over the mesh's
+``ring_axis`` on the same kernels (``"ring"``, for a sequence split over
+sp), or the naive reference.  ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``), and ``lm_loss`` is the f32
+next-token cross entropy.  MoE blocks wait for a later slice.
 
 The parameters may be DTensors (``models/pretrain.ShardedPretrainer`` over
 a mesh): every op here has a DTensor sharding rule (the embedding lookup
 gathers a vocab-sharded table first, ``_embed``), and ``flash_attention``
-runs its kernels on each rank's local shard.
+runs its kernels on each rank's local shard.  Positions are global: on a
+batch whose sequence is split over sp, ``wpe``'s rows are those of the
+whole sequence, laid out as the activations are.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ray_tpu_torch.ops.attention import (
     _is_dtensor,
     flash_attention,
     mha_reference,
+    ring_attention_sharded,
 )
 
 # flax LayerNorm's default epsilon (torch's is 1e-5)
@@ -50,7 +54,8 @@ class GPT2Config:
     n_head: int = 12
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "flash"  # "flash" | "reference"
+    attention_impl: str = "flash"  # "flash" | "ring" | "reference"
+    ring_axis: str = "sp"
     # Rematerialize each block in backward (recompute activations) when
     # autograd records the forward.  "full" recomputes everything; "dots"
     # keeps the outputs of the matrix products and recomputes the rest.
@@ -59,10 +64,7 @@ class GPT2Config:
     moe_every: int = 0
 
     def __post_init__(self):
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP.md A4)")
-        if self.attention_impl not in ("flash", "reference"):
+        if self.attention_impl not in ("flash", "ring", "reference"):
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r}")
         if self.moe_every > 0:
@@ -80,7 +82,16 @@ class GPT2Config:
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
+    """``lin`` applied to ``x`` (B, S, E) in ``dtype``.  A DTensor whose
+    positions are split over sp goes through a product batched over B:
+    ``F.linear`` folds B and S into one dim, which DTensor refuses while S
+    is sharded (torch 2.11: "Attempted to flatten multiple dimensions")."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
+    if _is_dtensor(x) and any(p.is_shard() and 0 < p.dim < x.ndim - 1
+                              for p in x.placements):
+        w = lin.weight.to(dtype).t()
+        out = torch.bmm(x.to(dtype), w.expand(x.shape[0], *w.shape))
+        return out if bias is None else out + bias
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
@@ -122,7 +133,10 @@ class Attention(nn.Module):
         # contiguous thirds, then (B, S, H, D) -> (B, H, S, D)
         q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
                    for t in qkv.split(E, dim=-1))
-        if cfg.attention_impl == "reference":
+        if cfg.attention_impl == "ring":
+            out = ring_attention_sharded(q, k, v, causal=True,
+                                         seq_axis=cfg.ring_axis)
+        elif cfg.attention_impl == "reference":
             out = mha_reference(q, k, v, causal=True)
         else:
             out = flash_attention(q, k, v, causal=True)

@@ -8,9 +8,12 @@ SwiGLU MLPs, grouped-query attention (``n_kv_head < n_head``) and an untied
 ``models/convert.llama_params_from_flax`` and ``llama_partition_rules``
 shards it.  Parameters are f32 and compute runs in ``config.dtype`` (bf16
 by default), as in ``models/gpt2.py``; attention is the hand-written flash
-kernel forward and backward or the naive reference; remat recomputes each
-block as ``GPT2LMModel`` does.  Ring attention (``ROADMAP.md`` A4) and MoE
-blocks (A5b) wait for later slices.
+kernel forward and backward, ring attention on the same kernels over
+``ring_axis`` (after the GQA repeat), or the naive reference; remat
+recomputes each block as ``GPT2LMModel`` does.  RoPE's tables are taken
+at global positions, so a sequence split over sp rotates each token by its
+place in the whole sequence.  MoE blocks (``ROADMAP.md`` A5b) wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.gpt2 import _dense, _embed, run_blocks
-from ray_tpu_torch.ops.attention import flash_attention, mha_reference
+from ray_tpu_torch.ops.attention import (
+    flash_attention,
+    mha_reference,
+    ring_attention_sharded,
+)
 
 
 @dataclass(frozen=True)
@@ -38,16 +45,14 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "flash"    # "flash" | "reference"
+    attention_impl: str = "flash"    # "flash" | "ring" | "reference"
+    ring_axis: str = "sp"
     remat: bool = True
     remat_policy: str = "full"       # "full" | "dots"
     moe_every: int = 0               # pretrainer compatibility (dense only)
 
     def __post_init__(self):
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP.md A4)")
-        if self.attention_impl not in ("flash", "reference"):
+        if self.attention_impl not in ("flash", "ring", "reference"):
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r}")
         if self.moe_every > 0:
@@ -126,7 +131,10 @@ class LlamaAttention(nn.Module):
             rep = H // KV
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
-        if cfg.attention_impl == "reference":
+        if cfg.attention_impl == "ring":
+            out = ring_attention_sharded(q, k, v, causal=True,
+                                         seq_axis=cfg.ring_axis)
+        elif cfg.attention_impl == "reference":
             out = mha_reference(q, k, v, causal=True)
         else:
             out = flash_attention(q, k, v, causal=True)

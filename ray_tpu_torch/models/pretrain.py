@@ -13,16 +13,18 @@ the config's type (``_model_family``).
 
 Over a mesh (``parallel/mesh.py``) of more than one rank, or whenever a
 process group is initialised, the parameters are DTensors laid out by the
-family's rules and the batch is sharded over (dp, fsdp); DTensor inserts
-the collectives GSPMD inserts in the JAX trainer (NCCL on the card, gloo on
-the CPU).  AdamW runs on each rank's local shards, which is exact because
-it is elementwise, and the clip takes the norm of the whole gradient.
-Sequence parallelism waits for ring attention (``ROADMAP.md`` A4), and
-sharded checkpoints for the train backend (A6).
+family's rules and the batch is sharded over (dp, fsdp) and its sequence
+over sp; DTensor inserts the collectives GSPMD inserts in the JAX trainer
+(NCCL on the card, gloo on the CPU).  With sp > 1 the trainer switches
+flash attention to ring attention, as the JAX trainer does.  AdamW runs on
+each rank's local shards, which is exact because it is elementwise, and
+the clip takes the norm of the whole gradient.  Sharded checkpoints wait
+for the train backend (``ROADMAP.md`` A6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -214,13 +216,6 @@ def train_step(model: nn.Module, opt: Optimizer,
     return loss.detach()
 
 
-def _refuse_sp(sp: int) -> None:
-    if sp > 1:
-        raise NotImplementedError(
-            f"sp={sp} needs ring attention, which is not ported yet "
-            f"(ROADMAP.md A4)")
-
-
 class ShardedPretrainer:
     """Owns the mesh, the model, the optimizer and the step.
 
@@ -232,18 +227,19 @@ class ShardedPretrainer:
     ``DeviceMesh`` of ``build_mesh``, the parameters are DTensors laid out
     by the family's rules (``self.param_specs``, in the torch layout) on
     its axes of more than one rank, and ``step`` takes the same global
-    batch on every rank."""
+    batch on every rank.  ``self.config`` is the config trained: flash
+    attention becomes ring attention when sp resolves to more than one
+    rank."""
 
     def __init__(self, config, mesh_config=None, lr: float = 3e-4,
                  device=None, total_steps: int = 10_000,
                  params: Optional[Mapping] = None):
         mesh_config = as_mesh_config(mesh_config)
         grouped = dist.is_available() and dist.is_initialized()
-        # the JAX trainer switches to ring attention over sp: refuse it
-        # before the mesh is resolved, and after, for an sp of -1
-        _refuse_sp(mesh_config.sp)
-        _refuse_sp(mesh_config.resolve(
-            dist.get_world_size() if grouped else 1)["sp"])
+        sizes = mesh_config.resolve(dist.get_world_size() if grouped else 1)
+        if sizes["sp"] > 1 and config.attention_impl == "flash":
+            # a sequence split needs the ring, as in the JAX trainer
+            config = dataclasses.replace(config, attention_impl="ring")
         self.config = config
         self.device = resolve_device(device)
         self.model, _ = init_params(config, device=self.device)
@@ -285,9 +281,10 @@ class ShardedPretrainer:
 
     def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's ``input_ids`` and ``targets`` as int64 on the device
-        (numpy arrays or tensors), rows over (dp, fsdp) on a mesh.  Other
-        keys are dropped, as the JAX trainer's ``batch_sharding`` drops
-        them: a ``mask`` does not reach the loss."""
+        (numpy arrays or tensors), rows over (dp, fsdp) and positions over
+        sp on a mesh.  Other keys are dropped, as the JAX trainer's
+        ``batch_sharding`` drops them: a ``mask`` does not reach the
+        loss."""
         out = {}
         for key in ("input_ids", "targets"):
             val = torch.as_tensor(batch[key]).long()

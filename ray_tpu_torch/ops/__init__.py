@@ -2,8 +2,8 @@
 
 Counterpart of ``ray_tpu.ops``: flash attention (forward and split-KV
 combine kernels in ``csrc/flash_fwd.cu``, backward kernels in
-``csrc/flash_bwd.cu``).  Ring attention and the GAE
-scans wait for later slices.
+``csrc/flash_bwd.cu``), and ring attention over a sequence split, which
+runs each chunk on those kernels.  The GAE scans wait for a later slice.
 """
 
 from ray_tpu_torch.ops.attention import (
@@ -18,11 +18,17 @@ from ray_tpu_torch.ops.attention import (
     flash_fwd_combine,
     merge_partials_plain,
     mha_reference,
+    ring_attention,
+    ring_attention_bwd_unrolled,
+    ring_attention_fwd_unrolled,
+    ring_attention_sharded,
     split_plan,
 )
 
 __all__ = ["flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_fwd_split_plain",
-           "flash_bwd_delta", "flash_bwd_delta_plain", "flash_fwd_combine", "merge_partials_plain", "mha_reference",
-           "split_plan"]
+           "flash_bwd_delta", "flash_bwd_delta_plain", "flash_fwd_combine",
+           "merge_partials_plain", "mha_reference", "ring_attention",
+           "ring_attention_bwd_unrolled", "ring_attention_fwd_unrolled",
+           "ring_attention_sharded", "split_plan"]

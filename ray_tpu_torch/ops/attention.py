@@ -30,12 +30,20 @@ Counterpart of ``ray_tpu/ops/attention.py``:
 - ``flash_attention`` keeps the JAX signature and the (B, H, S, D) layout,
   and is differentiable: ``_FlashAttention`` is the ``custom_vjp`` of
   :251-273, forward by ``flash_attention_fwd`` and backward by
-  ``flash_attention_bwd``.
+  ``flash_attention_bwd``;
+- ``ring_attention`` mirrors ``ring_attention`` (:316-365) on local
+  shards over the sp process group: ``_chunk_attention`` is the flash
+  forward of one (q shard, K/V chunk) pair at its global offsets,
+  ``_online_merge`` (:287-293) merges the pairs' ``(o, lse)`` in f32, and
+  K/V rotate by ``torch.distributed`` P2P in place of ``ppermute``;
+  ``_RingAttention`` writes the backward that JAX gets by transposition;
+  ``ring_attention_sharded`` (:375-397) runs it on DTensors.
 
-``flash_attention`` and ``mha_reference`` also take DTensors (a model
-sharded over a mesh): ``_on_local_shards`` lays q, k and v out with the
-batch over dp and fsdp and the heads over tp, and runs the function on each
-rank's local shard, as ``shard_map`` would.  The kernels see plain tensors.
+``flash_attention``, ``mha_reference`` and ``ring_attention_sharded`` take
+DTensors (a model sharded over a mesh): ``_on_local_shards`` lays q, k and
+v out with the batch over dp and fsdp, the heads over tp and, for the
+ring, the sequence over sp, and runs the function on each rank's local
+shard, as ``shard_map`` would.  The kernels see plain tensors.
 """
 
 from __future__ import annotations
@@ -97,22 +105,28 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def _on_local_shards(fn, q, k, v, **kw):
+def _on_local_shards(fn, q, k, v, *, batch_axes=("dp", "fsdp"),
+                     head_axis="tp", seq_axis=None, **kw):
     """``fn(q, k, v, **kw)`` for DTensors of (B, H, S, D): each rank runs
-    ``fn`` on its local shard with the batch over dp and fsdp and the heads
-    over tp (other mesh dims replicate); the output comes back as a DTensor
-    in that layout.  Differentiable: the gradients return in the same
-    layout.  A sequence split (sp) needs ring attention (ROADMAP.md A4)."""
+    ``fn`` on its local shard with the batch over ``batch_axes``, the heads
+    over ``head_axis`` and, for the ring, the sequence over ``seq_axis``
+    (other mesh dims replicate); the output comes back as a DTensor in that
+    layout.  Differentiable: the gradients return in the same layout.  An
+    sp dim of more than one rank that is not ``seq_axis`` is refused: each
+    rank would see a slice of the keys."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = q.device_mesh
-    by_axis = {"dp": Shard(0), "fsdp": Shard(0), "tp": Shard(1)}
+    by_axis = {**{a: Shard(0) for a in batch_axes}, head_axis: Shard(1)}
+    if seq_axis is not None:
+        by_axis[seq_axis] = Shard(2)
     layout = []
     for name, size in zip(mesh.mesh_dim_names, mesh.mesh.shape):
-        if name == "sp" and size > 1:
+        if name == "sp" and size > 1 and name not in by_axis:
             raise NotImplementedError(
-                "attention over a sequence split needs ring attention, not "
-                "ported yet (ROADMAP.md A4)")
+                "attention over a sequence split (sp > 1) is ring "
+                "attention: ring_attention_sharded, or attention_impl="
+                "\"ring\" in the model's config")
         layout.append(by_axis.get(name, Replicate()))
     local = [t.redistribute(mesh, layout).to_local() for t in (q, k, v)]
     o = fn(*local, **kw)
@@ -811,3 +825,236 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _FlashAttention.apply(q, k, v, causal, float(sm_scale),
                                  int(q_offset), int(k_offset), block_q,
                                  block_k)
+
+
+# ======================================================== ring attention
+def _online_merge(o_a, lse_a, o_b, lse_b):
+    """Two partials ``(o, lse)`` of the same query rows over disjoint keys
+    merged into the union's, in f32: lse = logaddexp(lse_a, lse_b) and
+    o = o_a·e^(lse_a−lse) + o_b·e^(lse_b−lse).  The reference's
+    ``_online_merge`` (:287-293) on ``(m, l, acc)``, with lse = m + log l
+    and o = acc / l.  A row dead in both (o = 0, lse = -1e30) stays so."""
+    lse = torch.logaddexp(lse_a, lse_b)
+    o = (o_a.float() * torch.exp(lse_a - lse)[..., None]
+         + o_b.float() * torch.exp(lse_b - lse)[..., None])
+    return o, lse
+
+
+def _chunk_attention(q, k, v, sm_scale, causal, q_off, k_off):
+    """The partials ``(o, lse)`` of one (q shard, kv chunk) pair: the flash
+    forward at the pair's global offsets, so the kernel on CUDA tensors and
+    its plain version on CPU ones.  The reference's ``_chunk_attention``
+    (:296-313) computes the same function in XLA, un-normalised."""
+    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                               q_offset=q_off, k_offset=k_off)
+
+
+def _ring_fwd_step(q, k_c, v_c, acc, *, me, src, chunk, causal, sm_scale):
+    """The forward's step at ring position ``me`` holding the K/V chunk of
+    position ``src``: ``acc``, the merged f32 ``(o, lse)`` so far (None
+    before the first step), with this pair's partials merged in.  A step
+    that causality hides entirely (``src > me``) launches nothing: the
+    reference computes it to zero."""
+    if causal and src > me:
+        return acc
+    o, lse = _chunk_attention(q, k_c, v_c, sm_scale, causal, me * chunk,
+                              src * chunk)
+    if acc is None:
+        return o.float(), lse
+    return _online_merge(*acc, o, lse)
+
+
+def _ring_bwd_step(q, k_c, v_c, o, lse, g, dq, dkv, *, me, src, chunk,
+                   causal, sm_scale):
+    """The backward's step at ring position ``me`` holding ``src``'s K/V
+    chunk: the flash backward of the pair with the merged (global) ``o``
+    and ``lse``, so that delta and P are the whole softmax's; dq adds into
+    the local f32 ``dq`` and dk, dv into ``dkv`` (f32, (2, B, H, c, D)),
+    the sums that travel with the chunk.  The pair's gradients come in the
+    inputs' dtype, so a bf16 ring rounds them once more than the whole
+    sequence's backward does.  Hidden steps launch nothing."""
+    if causal and src > me:
+        return
+    dq_c, dk_c, dv_c = flash_attention_bwd(
+        q, k_c, v_c, o, lse, g, causal=causal, sm_scale=sm_scale,
+        q_offset=me * chunk, k_offset=src * chunk)
+    dq.add_(dq_c)
+    dkv[0].add_(dk_c)
+    dkv[1].add_(dv_c)
+
+
+def _ring_pass(group, t: torch.Tensor):
+    """Start sending ``t`` (contiguous) to the next rank of ``group``'s
+    ring and receiving the previous rank's into a new buffer: (requests,
+    buffer)."""
+    import torch.distributed as dist
+
+    sp, me = group.size(), group.rank()
+    buf = torch.empty_like(t)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, t, dist.get_global_rank(group, (me + 1) % sp),
+                   group),
+        dist.P2POp(dist.irecv, buf,
+                   dist.get_global_rank(group, (me - 1) % sp), group)])
+    return reqs, buf
+
+
+def _wait(reqs) -> None:
+    for req in reqs:
+        req.wait()
+
+
+def _ring_forward(q, k, v, group, causal: bool, sm_scale: float):
+    """``ring_attention``'s forward: ``(o, lse)``, o in q's dtype.  K/V
+    travel as one (2, B, H, c, D) tensor; each rotation is started before
+    the step that uses the chunk in hand, and the last one is dropped."""
+    sp, me = group.size(), group.rank()
+    kv = torch.stack([k, v])
+    acc = None
+    for i in range(sp):
+        if i + 1 < sp:
+            reqs, nxt = _ring_pass(group, kv)
+        acc = _ring_fwd_step(q, kv[0], kv[1], acc, me=me, src=(me - i) % sp,
+                             chunk=q.shape[2], causal=causal,
+                             sm_scale=sm_scale)
+        if i + 1 < sp:
+            _wait(reqs)
+            kv = nxt
+    o, lse = acc
+    return o.to(q.dtype), lse
+
+
+def _ring_backward(q, k, v, o, lse, g, group, causal: bool,
+                   sm_scale: float):
+    """``ring_attention``'s backward: ``(dq, dk, dv)`` in the inputs'
+    dtypes.  K/V rotate again and their f32 dK/dV sums travel with them;
+    after ``sp`` rotations of the sums each is back with its chunk's
+    owner."""
+    sp, me = group.size(), group.rank()
+    kv = torch.stack([k, v])
+    dkv = torch.zeros(kv.shape, dtype=torch.float32, device=kv.device)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for i in range(sp):
+        if i + 1 < sp:
+            reqs, kv_next = _ring_pass(group, kv)
+        _ring_bwd_step(q, kv[0], kv[1], o, lse, g, dq, dkv, me=me,
+                       src=(me - i) % sp, chunk=q.shape[2], causal=causal,
+                       sm_scale=sm_scale)
+        if sp > 1:
+            dkv_reqs, dkv = _ring_pass(group, dkv)
+            _wait(dkv_reqs)
+        if i + 1 < sp:
+            _wait(reqs)
+            kv = kv_next
+    return dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype)
+
+
+class _RingAttention(torch.autograd.Function):
+    """The ring's forward and its backward, which JAX gets by transposing
+    ``scan`` and ``ppermute``.  Saves the local q, k, v and the merged o
+    and lse: every rank keeps its own K/V chunk, never the rotated ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, sm_scale):
+        o, lse = _ring_forward(q, k, v, group, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (group, causal, sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv = _ring_backward(*ctx.saved_tensors, g, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def ring_attention(q, k, v, *, group, causal: bool = True,
+                   sm_scale: Optional[float] = None):
+    """Ring attention over the ranks of ``group`` (the sp process group; the
+    reference's ``axis_name``, :316-365), on local shards: each rank holds
+    the (B, H, S/sp, D) chunk of q, k and v at its group rank's position of
+    the sequence.  K/V rotate to the next rank with
+    ``torch.distributed`` P2P while each rank merges the partials of its
+    queries against every chunk, as ``flash_attention`` of the whole
+    sequence would compute them.  Differentiable."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    return _RingAttention.apply(q, k, v, group, causal, float(sm_scale))
+
+
+def ring_attention_sharded(q, k, v, *, mesh=None, causal: bool = True,
+                           sm_scale: Optional[float] = None,
+                           batch_axes=("dp", "fsdp"), head_axis: str = "tp",
+                           seq_axis: str = "sp"):
+    """Ring attention on DTensors of (B, H, S, D) (:375-397): laid out with
+    the batch over ``batch_axes``, the heads over ``head_axis`` and the
+    sequence over ``seq_axis``, each rank runs ``ring_attention`` on its
+    local shard over ``seq_axis``'s process group.  ``mesh`` is the
+    DTensors' own.  A mesh without ``seq_axis`` (an axis of one rank, which
+    ``parallel.mesh.active_mesh`` leaves out) is a ring of one: flash
+    attention on the local shards."""
+    if not _is_dtensor(q):
+        raise ValueError("ring_attention_sharded takes DTensors on a device "
+                         "mesh (the reference's needs a mesh too); "
+                         "ring_attention takes local shards")
+    if mesh is not None and mesh != q.device_mesh:
+        raise ValueError("ring_attention_sharded: mesh is not the mesh the "
+                         "DTensors live on")
+    kw = dict(causal=causal, sm_scale=sm_scale, batch_axes=batch_axes,
+              head_axis=head_axis)
+    if seq_axis not in q.device_mesh.mesh_dim_names:
+        return _on_local_shards(flash_attention, q, k, v, **kw)
+    return _on_local_shards(ring_attention, q, k, v, seq_axis=seq_axis,
+                            group=q.device_mesh.get_group(seq_axis), **kw)
+
+
+def ring_attention_fwd_unrolled(q, k, v, *, sp: int, causal: bool = True,
+                                sm_scale: Optional[float] = None):
+    """The ring's forward schedule in one process: q, k, v of the whole
+    sequence cut into ``sp`` contiguous chunks, and at step i position r
+    runs ``_ring_fwd_step`` on chunk (r − i) mod sp, no exchange.  Returns
+    the whole ``(o, lse)``, as ``ring_attention`` on ``sp`` ranks puts it
+    together: for checking the ring's steps where one process holds every
+    position."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    chunk = q.shape[2] // sp
+    qs, ks, vs = ([c.contiguous() for c in t.split(chunk, dim=2)]
+                  for t in (q, k, v))
+    acc = [None] * sp
+    for i in range(sp):
+        for r in range(sp):
+            src = (r - i) % sp
+            acc[r] = _ring_fwd_step(qs[r], ks[src], vs[src], acc[r], me=r,
+                                    src=src, chunk=chunk, causal=causal,
+                                    sm_scale=sm_scale)
+    return (torch.cat([a[0] for a in acc], dim=2).to(q.dtype),
+            torch.cat([a[1] for a in acc], dim=2))
+
+
+def ring_attention_bwd_unrolled(q, k, v, o, lse, g, *, sp: int,
+                                causal: bool = True,
+                                sm_scale: Optional[float] = None):
+    """The ring's backward schedule in one process (see
+    ``ring_attention_fwd_unrolled``): at step i position r runs
+    ``_ring_bwd_step`` on chunk (r − i) mod sp, whose f32 dK/dV sums take
+    the additions in the ring's order.  Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    chunk = q.shape[2] // sp
+    qs, ks, vs, os_, gs = ([c.contiguous() for c in t.split(chunk, dim=2)]
+                           for t in (q, k, v, o, g))
+    lses = [c.contiguous() for c in lse.split(chunk, dim=2)]
+    dq = [torch.zeros(c.shape, dtype=torch.float32, device=c.device)
+          for c in qs]
+    dkv = [torch.zeros((2, *c.shape), dtype=torch.float32, device=c.device)
+           for c in ks]
+    for i in range(sp):
+        for r in range(sp):
+            src = (r - i) % sp
+            _ring_bwd_step(qs[r], ks[src], vs[src], os_[r], lses[r], gs[r],
+                           dq[r], dkv[src], me=r, src=src, chunk=chunk,
+                           causal=causal, sm_scale=sm_scale)
+    return (torch.cat(dq, dim=2).to(q.dtype),
+            torch.cat([d[0] for d in dkv], dim=2).to(k.dtype),
+            torch.cat([d[1] for d in dkv], dim=2).to(v.dtype))

@@ -81,8 +81,42 @@ def test_params_from_flax_layout():
     assert "lm_head.bias" not in state
 
 
+def test_ring_attention_impl_runs_the_ring(monkeypatch):
+    """``attention_impl="ring"`` (the trainer's choice over sp) sends each
+    layer's q, k, v to ``ring_attention_sharded`` over ``ring_axis``, as
+    the JAX model does.  On plain tensors, with no mesh, both models raise;
+    with the ring's steps unrolled over sp = 2 in this process in its
+    place, the logits are the JAX model's."""
+    from ray_tpu_torch.models import gpt2 as tgpt2
+    from ray_tpu_torch.ops import ring_attention_fwd_unrolled
+
+    ids = _ids(b=2, s=32, seed=4)
+    want, params = _jax_logits_and_params(jnp.float32, ids)
+    jcfg = JConfig(**TINY, dtype=jnp.float32, attention_impl="ring",
+                   remat=False)
+    with pytest.raises(ValueError, match="mesh"):
+        JModel(jcfg).apply({"params": params}, jnp.asarray(ids),
+                           deterministic=True)
+    cfg = GPT2Config(**TINY, dtype=torch.float32, attention_impl="ring")
+    assert cfg.ring_axis == jcfg.ring_axis == "sp"
+    model = GPT2LMModel(cfg, device="cpu")
+    model.load_state_dict(params_from_flax(params))
+    with torch.no_grad(), pytest.raises(ValueError, match="DTensors"):
+        model(torch.from_numpy(ids))
+    axes = []
+
+    def unrolled(q, k, v, *, causal, seq_axis):
+        axes.append(seq_axis)
+        return ring_attention_fwd_unrolled(q, k, v, sp=2, causal=causal)[0]
+
+    monkeypatch.setattr(tgpt2, "ring_attention_sharded", unrolled)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids)).numpy()
+    assert axes == ["sp"] * TINY["n_layer"]
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
 @pytest.mark.parametrize("over,exc", [
-    (dict(attention_impl="ring"), NotImplementedError),
     (dict(moe_every=2), NotImplementedError),
     (dict(attention_impl="bogus"), ValueError),
 ])

@@ -261,8 +261,40 @@ def test_trainer_losses_match_the_jax_trainer():
     assert isinstance(trainer.model, LlamaLMModel)
 
 
+def test_ring_attention_impl_runs_the_ring(monkeypatch):
+    """``attention_impl="ring"`` sends each layer's q, k, v, after RoPE
+    and the GQA repeat, to ``ring_attention_sharded`` over ``ring_axis``,
+    as the JAX model does.  On plain tensors, with no mesh, both models
+    raise; with the ring's steps unrolled over sp = 4 in this process in
+    its place, the logits are the JAX model's."""
+    from ray_tpu_torch.ops import ring_attention_fwd_unrolled
+
+    ids = _ids(b=2, s=40, seed=7)
+    _, params = _jax_params()
+    want = _jax_logits(params, ids, torch.float32, "flash")
+    jcfg = jllama.LlamaConfig(**TINY, dtype=jnp.float32,
+                              attention_impl="ring", remat=False)
+    with pytest.raises(ValueError, match="mesh"):
+        jllama.LlamaLMModel(jcfg).apply({"params": params}, jnp.asarray(ids))
+    model = _port_model(params, attention_impl="ring")
+    assert model.config.ring_axis == jcfg.ring_axis == "sp"
+    with torch.no_grad(), pytest.raises(ValueError, match="DTensors"):
+        model(torch.from_numpy(ids))
+    shapes = []
+
+    def unrolled(q, k, v, *, causal, seq_axis):
+        shapes.append((seq_axis, tuple(k.shape)))
+        return ring_attention_fwd_unrolled(q, k, v, sp=4, causal=causal)[0]
+
+    monkeypatch.setattr(tllama, "ring_attention_sharded", unrolled)
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids)).numpy()
+    # every query head has its K/V head
+    assert shapes == [("sp", (2, TINY["n_head"], 40, 16))] * TINY["n_layer"]
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
 @pytest.mark.parametrize("over,exc,match", [
-    (dict(attention_impl="ring"), NotImplementedError, "A4"),
     (dict(moe_every=2), NotImplementedError, "A5b"),
     (dict(attention_impl="bogus"), ValueError, "attention_impl"),
     (dict(n_kv_head=3), ValueError, "n_kv_head"),

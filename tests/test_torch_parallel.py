@@ -8,7 +8,9 @@ JAX's ``match_partition_rules`` on the flax tree, flipped for torch's
 once for the module, trains tiny GPT-2 and tiny Llama under each mesh; each
 mesh is its own test: three steps' losses and gradient norms in f32 within
 1e-5 relative of the one-process trainer and within 1e-4 of the JAX
-trainer, from the same flax initialisation.
+trainer, from the same flax initialisation.  A mesh with a sequence split
+(sp) trains through ring attention, held against the JAX trainer under the
+same mesh (its ring, on JAX's virtual CPU devices).
 """
 
 import multiprocessing
@@ -50,7 +52,7 @@ LLAMA_TINY = dict(vocab_size=512, n_positions=128, d_model=64, n_layer=2,
                   n_head=4, n_kv_head=2, d_ff=128)
 WORLD = 4
 STEPS = 3
-GANG_TIMEOUT_S = 150
+GANG_TIMEOUT_S = 240
 # each mesh covers the gang's four ranks; dp absorbs what the others leave
 GANG_CASES = {
     "gpt-dp4": ("gpt", dict(dp=-1)),
@@ -59,7 +61,12 @@ GANG_CASES = {
     "gpt-tp2-fsdp2": ("gpt", dict(dp=1, tp=2, fsdp=2)),
     "gpt-tp4": ("gpt", dict(dp=1, tp=4)),
     "llama-tp2-fsdp2": ("llama", dict(dp=1, tp=2, fsdp=2)),
+    "gpt-dp2-sp2": ("gpt", dict(dp=-1, sp=2)),
+    "gpt-sp4": ("gpt", dict(dp=1, sp=4)),
+    "llama-tp2-sp2": ("llama", dict(dp=1, tp=2, sp=2)),
 }
+# the cases whose JAX reference is the JAX trainer under the same mesh
+SP_CASES = [c for c, (_, kw) in GANG_CASES.items() if kw.get("sp", 1) > 1]
 
 
 def _configs(family):
@@ -220,14 +227,16 @@ def _gang_rank(rank, init_file, payload_file, results):
             tp_sharded = [name for name, p in trainer.model.named_parameters()
                           if tp is not None and p.placements[tp].is_shard()
                           and p.to_local().numel() < p.numel()]
-            ids = trainer.shard_batch(batches[0])["input_ids"]
+            ids = trainer.shard_batch(batches[0])["input_ids"].to_local()
             steps = []
             for b in batches:
                 loss = trainer.step(b).item()
                 steps.append((loss, trainer.opt.last_grad_norm.item()))
             out[case] = {"steps": steps, "whole": whole,
                          "tp_sharded": tp_sharded,
-                         "local_rows": ids.to_local().shape[0],
+                         "attention_impl": trainer.config.attention_impl,
+                         "local_rows": ids.shape[0],
+                         "local_positions": ids.shape[1],
                          "mesh": dict(zip(trainer.mesh.mesh_dim_names,
                                           trainer.mesh.mesh.shape))}
         out["primitives"] = _primitives()
@@ -264,11 +273,25 @@ def _primitives():
             "placements": [str(p) for p in rows.placements]}
 
 
-def _jax_trainer(family):
+def _jax_trainer(family, mesh_kw=None, world=1):
     return jpre.ShardedPretrainer(_configs(family)[0],
-                                  jmesh.MeshConfig(dp=-1),
-                                  devices=jax.devices()[:1], lr=0.1,
+                                  jmesh.MeshConfig(**(mesh_kw or {})),
+                                  devices=jax.devices()[:world], lr=0.1,
                                   total_steps=10)
+
+
+def _jax_steps(jtrainer):
+    """(loss, gradient norm) of each step of the JAX trainer over
+    ``_batches()``, the norm of the gradient each step applies."""
+    grad_norm = jax.jit(lambda p, b, m=jtrainer.model: optax.global_norm(
+        jax.grad(lambda q: jpre.loss_fn(m, q, b))(p)))
+    out = []
+    for b in _batches():
+        with jtrainer.mesh:
+            norm = float(grad_norm(jtrainer.state[0],
+                                   jtrainer.shard_batch(b)))
+        out.append((float(jtrainer.step(b)), norm))
+    return np.array(out)
 
 
 @pytest.fixture(scope="module")
@@ -280,13 +303,7 @@ def references():
     for family in ("gpt", "llama"):
         jtrainer = _jax_trainer(family)
         init = jax.tree_util.tree_map(np.array, jtrainer.state[0])
-        grad_norm = jax.jit(lambda p, b, m=jtrainer.model: optax.global_norm(
-            jax.grad(lambda q: jpre.loss_fn(m, q, b))(p)))
-        want = []
-        for b in _batches():
-            norm = float(grad_norm(jtrainer.state[0],
-                                   {k: jnp.asarray(v) for k, v in b.items()}))
-            want.append((float(jtrainer.step(b)), norm))
+        want = _jax_steps(jtrainer)
         trainer = ShardedPretrainer(_configs(family)[1], lr=0.1,
                                     device="cpu", total_steps=10,
                                     params=init)
@@ -301,7 +318,10 @@ def gang(references, tmp_path_factory):
     """Four gloo ranks, spawned once, run every case; the gang is killed,
     and every case fails, after GANG_TIMEOUT_S.  The parameters go through
     a file: as a spawn argument they would fill the pipe, and each start
-    would wait for its child to import this module."""
+    would wait for its child to import this module.  While the ranks run,
+    the JAX trainer takes the sp cases under their meshes (its ring needs
+    the mesh; its initialisation is the one-device trainer's): under
+    ``"jax"``, (loss, gradient norm) of each step by case."""
     import pickle
     import time
 
@@ -318,9 +338,12 @@ def gang(references, tmp_path_factory):
              for r in range(WORLD)]
     for p in procs:
         p.start()
-    got, deadline = {}, time.monotonic() + GANG_TIMEOUT_S
+    deadline, got = time.monotonic() + GANG_TIMEOUT_S, {}
     try:
-        while len(got) < WORLD and time.monotonic() < deadline:
+        got["jax"] = {case: _jax_steps(_jax_trainer(*GANG_CASES[case],
+                                                    WORLD))
+                      for case in SP_CASES}
+        while len(got) < WORLD + 1 and time.monotonic() < deadline:
             try:
                 rank, out = results.get(timeout=2)
             except queue.Empty:
@@ -335,8 +358,9 @@ def gang(references, tmp_path_factory):
             if p.is_alive():
                 p.kill()
                 p.join()
-    if len(got) < WORLD or any(p.exitcode != 0 for p in procs):
-        pytest.fail(f"the gloo gang gave results from ranks {sorted(got)}, "
+    if len(got) < WORLD + 1 or any(p.exitcode != 0 for p in procs):
+        pytest.fail(f"the gloo gang gave results from ranks "
+                    f"{sorted(r for r in got if r != 'jax')}, "
                     f"exit codes {[p.exitcode for p in procs]}")
     return got
 
@@ -349,15 +373,21 @@ def test_gang_matches_one_process_and_jax(case, gang, references):
     assert all(rec["steps"] == recs[0]["steps"] for rec in recs)
     got = np.array(recs[0]["steps"])
     _, one, want = references[family]
+    if case in SP_CASES:  # the JAX trainer under the same mesh
+        want = gang["jax"][case]
     np.testing.assert_allclose(got, one, rtol=1e-5)
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert len({tuple(s) for s in got}) == STEPS  # the steps moved
     assert all(rec["whole"] for rec in recs)
     sizes = MeshConfig(**mesh_kw).resolve(WORLD)
     assert recs[0]["mesh"] == {a: sizes[a] for a in recs[0]["mesh"]}
-    # the batch's rows over (dp, fsdp)
+    # the batch's rows over (dp, fsdp), its positions over sp, and the
+    # trainer on ring attention where sp splits them
     assert all(rec["local_rows"] == 4 // (sizes["dp"] * sizes["fsdp"])
+               and rec["local_positions"] == 64 // sizes["sp"]
                for rec in recs)
+    assert all(rec["attention_impl"] == ("ring" if sizes["sp"] > 1
+                                         else "flash") for rec in recs)
     if sizes["tp"] > 1:
         assert "lm_head.weight" in recs[0]["tp_sharded"]
         assert any(".attn." in n for n in recs[0]["tp_sharded"])

@@ -206,12 +206,11 @@ def test_trainer_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ShardedPretrainer(cfg)
-    # the JAX trainer switches to ring attention over sp
-    with pytest.raises(NotImplementedError, match="A4"):
-        ShardedPretrainer(cfg, MeshConfig(dp=-1, sp=2), device="cpu")
     # without a process group the world is this process: a mesh of two
-    # does not resolve, as JAX's MeshConfig.resolve refuses it
-    for mesh in (MeshConfig(dp=2), MeshConfig(dp=-1, tp=2)):
+    # does not resolve, as JAX's MeshConfig.resolve refuses it (a sequence
+    # split included: the gang of tests/test_torch_parallel.py trains it)
+    for mesh in (MeshConfig(dp=2), MeshConfig(dp=-1, tp=2),
+                 MeshConfig(dp=-1, sp=2)):
         with pytest.raises(ValueError, match="covers|divisible") as err:
             ShardedPretrainer(cfg, mesh, device="cpu")
         with pytest.raises(ValueError) as jerr:
