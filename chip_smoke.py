@@ -48,6 +48,16 @@ Phases, each fatal on failure:
      peak memory, MFU, a traced step;
      then loss parity against reference attention in bf16 (3 steps at
      batch 4) and in f32 (one step, loss and gradient norm);
+  6e. MoE training (a main path; runs after phase 6): ShardedPretrainer
+     takes 10 steps of GPT-2-small with routed experts in every second
+     block (the JAX package's defaults: 8 experts, top-2, capacity factor
+     1.25; bf16, flash, no remat) at batch 16 x 1024 on one seeded batch;
+     the checks and counters of phase 6, step time, tokens/s, peak memory,
+     MFU over the active parameters, a traced step; a checkpoint saved and
+     restored into a fresh trainer, whose next loss must equal the
+     uninterrupted trainer's bit for bit; parity against reference
+     attention as in phase 6, with the count of routing choices that
+     differ between the two runs;
   6b. Llama training (a main path): ShardedPretrainer(LlamaConfig(),
      MeshConfig()) takes 10 steps at the default config (12 layers, 768
      wide, 12 heads, 4 KV heads, SwiGLU 2048, vocab 32000, bf16, flash,
@@ -64,12 +74,16 @@ Phases, each fatal on failure:
      step time beside phase 6's, a traced step's idle share); where the
      machine has the cards, NCCL ranks take phase 6's f32 step under dp=2,
      tp=2 and sp=2 (two cards; sp through ring attention) and tp=2 x
-     fsdp=2 and sp=2 x tp=2 (four cards), each rank within 1e-5 (loss) and
+     fsdp=2 and sp=2 x tp=2 (four cards), and phase 6e's under ep=2 (two
+     cards) and ep=2 x tp=2 (four), each rank within 1e-5 (loss) and
      1e-4 (gradient norm) relative of the one-card step, and phase 6's
      bf16 run under sp=2 (two cards: losses within phase 6's bf16 bar,
      step time beside phase 6's); a line for each case that did not run.
      ``python3 chip_smoke.py --multi-card`` builds the kernels and runs
-     only the one-card f32 step and bf16 run and these cases;
+     only the one-card f32 steps and bf16 run and these cases;
+     ``python3 chip_smoke.py --gloo-gang`` runs these cases' f32 steps on
+     a gloo gang of CPU processes at tiny widths instead (no kernel): the
+     machine's torch on their DTensor path where the cards are missing;
   6d. ring attention on one card (a main path: NCCL puts no two ranks on
      one card, so one process runs every ring position's steps, the
      functions ``ring_attention`` runs on each rank): GPT-2-small's and
@@ -1423,13 +1437,233 @@ def ring_one_card(card_label):
     return total, rows
 
 
+# ------------------------------------------------------------ phase 6e
+def moe_config(**over):
+    """GPT-2-small with the JAX package's MoE defaults in every second
+    block (8 experts, top-2, capacity factor 1.25: six MoE layers), no
+    remat: phase 6's model with routed experts."""
+    from ray_tpu_torch.models import GPT2Config
+
+    return GPT2Config(moe_every=2, remat=False, **over)
+
+
+# the widths of tests/test_torch_parallel.py's gang, for the multi-card
+# meshes on a CPU gloo gang (--gloo-gang)
+GLOO_WIDTHS = dict(vocab_size=512, n_embd=64, n_layer=2, n_head=4)
+
+
+def f32_config(family: str, device: str = "cuda"):
+    """The f32 config of a multi-card case's model: phase 6's (``"gpt"``)
+    or phase 6e's (``"gpt-moe"``), at GLOO_WIDTHS on the CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.models import GPT2Config
+
+    cfg = (moe_config(dtype=torch.float32) if family == "gpt-moe"
+           else GPT2Config(remat=False, dtype=torch.float32))
+    return cfg if device == "cuda" else dataclasses.replace(cfg,
+                                                            **GLOO_WIDTHS)
+
+
+def _active_params(model) -> int:
+    """The parameters a token uses: every dense one, and per MoE layer the
+    router and top_k / n_experts of the expert weights."""
+    cfg = model.config
+    return int(sum(p.numel() * (cfg.moe_top_k / cfg.n_experts
+                                if name.endswith(("w_in", "w_out")) else 1)
+                   for name, p in model.named_parameters()))
+
+
+def _record_routing(model):
+    """Hooks on every MoE block of ``model`` that append, at each call,
+    each token's top-k experts by its router logits (on the CPU) to a
+    list: (the list, the hooks' handles)."""
+    from ray_tpu_torch.models.moe import MoEMlpBlock
+
+    choices = []
+
+    def hook(block, args):
+        with torch.no_grad():
+            logits = F.linear(args[0].float(), block.router.weight)
+            choices.append(logits.topk(block.config.top_k).indices.cpu())
+    return choices, [m.register_forward_pre_hook(hook)
+                     for m in model.modules() if isinstance(m, MoEMlpBlock)]
+
+
+def _routing_differs(a, b) -> str:
+    """How many (token, round) expert choices differ between two routing
+    logs of the same batches: a near-tie of the router (other roundings
+    upstream) moves one token, a fault many."""
+    n = sum(int((x != y).sum()) for x, y in zip(a, b))
+    total = sum(x.numel() for x in a)
+    return f"{n} of {total}"
+
+
+def train_moe(card, card_label):
+    """The MoE training path: ShardedPretrainer on GPT-2-small with routed
+    experts (bf16, flash, no remat) at phase 6's batch, then a checkpoint
+    round trip and parity against reference attention."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.models import ShardedPretrainer
+
+    cfg = moe_config()
+    trainer = ShardedPretrainer(cfg)
+    batch = _train_batch(cfg, TRAIN_BATCH, 0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    n_active = _active_params(trainer.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, t_start = [], None
+    for i in range(TRAIN_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        losses.append(trainer.step(batch))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t_start) / (TRAIN_STEPS - 2)
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [t.item() for t in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE training losses not finite and falling: "
+                             f"{losses}")
+    calls = cfg.n_layer * TRAIN_STEPS
+    want = {"flash_fwd": calls, "flash_fwd_combine": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkdv": calls, "flash_bwd_dq": calls,
+            "fused:flash_fwd_combine": 0, "fused:flash_bwd_delta": calls}
+    if launches != want:
+        raise AssertionError(f"MoE training launches {launches}, expected "
+                             f"{want}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bf16_peak = _peaks(card)[1]
+    mfu = 6 * n_active * tokens / step_s / bf16_peak
+    n_moe = sum(hasattr(b, "moe_mlp") for b in trainer.model.h)
+    print(f"[train_moe] GPT-2-small with MoE every {cfg.moe_every} blocks "
+          f"({n_moe} MoE layers, {cfg.n_experts} experts, top-"
+          f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity_factor}; "
+          f"{n_params} params, {n_active} active; bf16, flash, remat off), "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 4) for x in losses]}; step_ms={step_s * 1e3:.3f} "
+          f"tokens_per_s={tokens / step_s:.1f} peak_memory_gb={peak_gb:.3f} "
+          f"mfu={mfu:.4f} (6*N_active FLOPs a token over "
+          f"{bf16_peak / 1e12:.0f} TFLOP/s, N_active = the dense parameters "
+          f"+ per MoE layer the router and top_k/n_experts of the expert "
+          f"weights; attention left out); launches {launches} on "
+          f"{card_label}", flush=True)
+
+    wall, busy, kernels, _ = _trace_step(lambda: trainer.step(batch))
+    flash = {name: sum(t for k, t in kernels.items() if name in k)
+             for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    _, _, _, ops = _trace_step(lambda: trainer.step(batch), by_op=True)
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+    trace = {"wall_ms": wall, "busy_ms": busy,
+             "idle_share": 1 - busy / wall, "flash_ms": flash,
+             "top": [[k[:80], t] for k, t in top],
+             "top_ops": [[k[:80], t] for k, t in top_ops]}
+    print(f"[train_moe] traced step: wall_ms={wall:.3f} device_busy_ms="
+          f"{busy:.3f} (idle share {trace['idle_share']:.4f}); flash kernels "
+          + ", ".join(f"{k} {t:.3f} ms" for k, t in flash.items())
+          + "; top kernels: "
+          + "; ".join(f"{k[:70]} {t:.3f} ms" for k, t in top), flush=True)
+    print("[train_moe] device ms a step by the op that launched it: "
+          + "; ".join(f"{k[:60]} {t:.3f}" for k, t in top_ops), flush=True)
+
+    # a checkpoint, then the next step from it in a fresh trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(os.path.join(tmp, "ckpt"))
+        save_s = time.perf_counter() - t0
+        ckpt_gb = sum(os.path.getsize(os.path.join(root, f))
+                      for root, _, files in os.walk(tmp)
+                      for f in files) / 1e9
+        want_loss = trainer.step(batch).item()
+        del trainer
+        fresh = ShardedPretrainer(cfg)
+        t0 = time.perf_counter()
+        fresh.restore_checkpoint(os.path.join(tmp, "ckpt"))
+        restore_s = time.perf_counter() - t0
+        got_loss = fresh.step(batch).item()
+        del fresh
+    if got_loss != want_loss:
+        raise AssertionError(f"the restored trainer's step gave loss "
+                             f"{got_loss!r}, the uninterrupted one "
+                             f"{want_loss!r}")
+    print(f"[train_moe] checkpoint ({ckpt_gb:.3f} GB, saved in {save_s:.2f} "
+          f"s, restored in {restore_s:.2f} s): the restored trainer's next "
+          f"loss {got_loss!r} equals the uninterrupted trainer's bit for bit",
+          flush=True)
+
+    # parity against reference attention from the same init and batches
+    batches = [_train_batch(cfg, PARITY_BATCH, 1 + i)
+               for i in range(PARITY_STEPS)]
+    par, routes = {}, {}
+    for impl in ("flash", "reference"):
+        t = ShardedPretrainer(dataclasses.replace(cfg, attention_impl=impl))
+        routes[impl], hooks = _record_routing(t.model)
+        par[impl] = [t.step(b).item() for b in batches]
+        for h in hooks:
+            h.remove()
+        del t
+    differ = _routing_differs(routes["flash"], routes["reference"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(par["flash"],
+                                                   par["reference"]))
+    if rel > BF16_LOSS_RTOL:
+        raise AssertionError(f"MoE bf16 losses flash {par['flash']} vs "
+                             f"reference {par['reference']}: rel {rel:.3e} "
+                             f"> {BF16_LOSS_RTOL:.3e}; routing choices that "
+                             f"differ: {differ}")
+    print(f"[train_moe] bf16 parity, batch {PARITY_BATCH}, {PARITY_STEPS} "
+          f"steps: flash {par['flash']} reference {par['reference']}, max "
+          f"rel {rel:.3e} (bar {BF16_LOSS_RTOL:.3e}); routing choices that "
+          f"differ {differ}", flush=True)
+    f32, routes = {}, {}
+    for impl in ("flash", "reference"):
+        t = ShardedPretrainer(dataclasses.replace(
+            cfg, attention_impl=impl, dtype=torch.float32))
+        routes[impl], hooks = _record_routing(t.model)
+        loss = t.step(batches[0]).item()
+        for h in hooks:
+            h.remove()
+        f32[impl] = (loss, t.opt.last_grad_norm.item())
+        del t
+    differ = _routing_differs(routes["flash"], routes["reference"])
+    (lf, nf), (lr_, nr) = f32["flash"], f32["reference"]
+    if not (abs(lf - lr_) <= F32_LOSS_RTOL * abs(lr_)
+            and abs(nf - nr) <= F32_NORM_RTOL * abs(nr)):
+        raise AssertionError(f"MoE f32 step flash (loss {lf}, grad norm "
+                             f"{nf}) vs reference ({lr_}, {nr}); routing "
+                             f"choices that differ: {differ}")
+    print(f"[train_moe] f32 parity, one step at batch {PARITY_BATCH}, TF32 "
+          f"off: loss flash {lf:.8f} reference {lr_:.8f} (rel "
+          f"{abs(lf - lr_) / abs(lr_):.3e}, bar {F32_LOSS_RTOL}); grad norm "
+          f"flash {nf:.8f} reference {nr:.8f} (rel "
+          f"{abs(nf - nr) / abs(nr):.3e}, bar {F32_NORM_RTOL}); routing "
+          f"choices that differ {differ}", flush=True)
+    return launches, {"step_ms": step_s * 1e3,
+                      "tokens_per_s": tokens / step_s,
+                      "peak_memory_gb": peak_gb, "mfu": mfu,
+                      "n_params": n_params, "n_active": n_active,
+                      "losses": losses, "trace": trace,
+                      "checkpoint": {"gb": ckpt_gb, "save_s": save_s,
+                                     "restore_s": restore_s,
+                                     "loss": got_loss},
+                      "parity_bf16": par, "parity_f32": f32}
+
+
 # ------------------------------------------------------------ phase 6c
 MESH_TIMEOUT_S = 300
-# (ranks, mesh): each runs where the machine has that many cards
-MULTI_CARD_CASES = ((2, {"dp": 2}), (2, {"dp": 1, "tp": 2}),
-                    (2, {"dp": 1, "sp": 2}),
-                    (4, {"dp": 1, "fsdp": 2, "tp": 2}),
-                    (4, {"dp": 1, "sp": 2, "tp": 2}))
+# (ranks, mesh, model): each runs where the machine has that many cards;
+# "gpt" is phase 6's model, "gpt-moe" phase 6e's
+MULTI_CARD_CASES = ((2, {"dp": 2}, "gpt"), (2, {"dp": 1, "tp": 2}, "gpt"),
+                    (2, {"dp": 1, "sp": 2}, "gpt"),
+                    (2, {"dp": 1, "ep": 2}, "gpt-moe"),
+                    (4, {"dp": 1, "fsdp": 2, "tp": 2}, "gpt"),
+                    (4, {"dp": 1, "sp": 2, "tp": 2}, "gpt"),
+                    (4, {"dp": 1, "ep": 2, "tp": 2}, "gpt-moe"))
 # phase 6's bf16 run under a sequence split, where two cards exist
 BF16_SP_CASE = (2, {"dp": 1, "sp": 2})
 
@@ -1442,11 +1676,14 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False):
-    """One NCCL rank of a multi-card case: phase 6's f32 step (batch
-    PARITY_BATCH, the first parity batch) under ``mesh_kw``; with
-    ``bf16_run``, phase 6's bf16 run (10 steps at batch TRAIN_BATCH x
-    TRAIN_SEQ) instead, its losses and the ms a step of steps 3-10."""
+def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False,
+               family="gpt", device="cuda"):
+    """One NCCL rank of a multi-card case: the f32 step (batch
+    PARITY_BATCH, the first parity batch) of phase 6's model, or of phase
+    6e's (``family="gpt-moe"``), under ``mesh_kw``; with ``bf16_run``,
+    phase 6's bf16 run (10 steps at batch TRAIN_BATCH x TRAIN_SEQ) instead,
+    its losses and the ms a step of steps 3-10.  With ``device="cpu"``, a
+    gloo rank on the CPU at GLOO_WIDTHS instead."""
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1454,10 +1691,14 @@ def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False):
     from ray_tpu_torch.ops import attention as tattn
     from ray_tpu_torch.parallel import MeshConfig
 
-    torch.cuda.set_device(rank)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     try:
         if bf16_run:
@@ -1475,8 +1716,9 @@ def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False):
                 TRAIN_STEPS - 2)
             results.put((rank, [t.item() for t in losses], step_ms))
             return
-        cfg = GPT2Config(remat=False, dtype=torch.float32)
-        trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw))
+        cfg = f32_config(family, device)
+        trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw),
+                                    device=device)
         # an error in the backward names the forward op it came from
         with torch.autograd.detect_anomaly(check_nan=False):
             loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
@@ -1488,7 +1730,7 @@ def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False):
         dist.destroy_process_group()
 
 
-def _gang(world, mesh_kw, bf16_run=False):
+def _gang(world, mesh_kw, bf16_run=False, family="gpt", device="cuda"):
     """What each of ``world`` NCCL ranks, one a card, put on the queue
     under ``mesh_kw`` (``_mesh_rank``), in rank order.  The gang is
     killed, and the phase fails, after MESH_TIMEOUT_S."""
@@ -1498,7 +1740,8 @@ def _gang(world, mesh_kw, bf16_run=False):
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, mesh_kw,
-                                                  results, bf16_run))
+                                                  results, bf16_run, family,
+                                                  device))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1524,15 +1767,16 @@ def _gang(world, mesh_kw, bf16_run=False):
     return sorted(got)
 
 
-def _multi_card(world, mesh_kw, ref):
-    """The f32 step under ``mesh_kw``; each rank's loss and gradient norm
-    against the one-card step ``ref``."""
-    got = _gang(world, mesh_kw)
+def _multi_card(world, mesh_kw, family, ref, device="cuda"):
+    """``family``'s f32 step under ``mesh_kw``; each rank's loss and
+    gradient norm against the one-card step ``ref``."""
+    got = _gang(world, mesh_kw, family=family, device=device)
     (loss1, norm1) = ref
     for rank, loss, norm, _ in got:
         if not (abs(loss - loss1) <= F32_LOSS_RTOL * abs(loss1)
                 and abs(norm - norm1) <= F32_NORM_RTOL * abs(norm1)):
-            raise AssertionError(f"multi-card {mesh_kw} rank {rank}: loss "
+            raise AssertionError(f"multi-card {family} {mesh_kw} rank "
+                                 f"{rank}: loss "
                                  f"{loss} grad norm {norm} against the one-"
                                  f"card step's {loss1}, {norm1}")
     return got
@@ -1540,28 +1784,30 @@ def _multi_card(world, mesh_kw, ref):
 
 def multi_card(n_cards, ref_f32, ref_bf16) -> dict:
     """Every case of MULTI_CARD_CASES that ``n_cards`` cards can hold,
-    against the one-card f32 step ``ref_f32`` (loss, gradient norm); then
+    against the one-card f32 step of its model, ``ref_f32[family]`` (loss,
+    gradient norm); then
     phase 6's bf16 run under BF16_SP_CASE against ``ref_bf16`` (its losses
     and step ms on one card); a line for each case that did not run.
     Every case runs; the phase fails at the end if any did."""
     multi, failed = {}, []
-    for world, mesh_kw in MULTI_CARD_CASES:
+    for world, mesh_kw, family in MULTI_CARD_CASES:
         if world > n_cards:
             print(f"[mesh] {n_cards} card(s): the {world}-card case "
-                  f"{mesh_kw} did not run", flush=True)
+                  f"{family} {mesh_kw} did not run", flush=True)
             continue
         try:
-            got = _multi_card(world, mesh_kw, ref_f32)
+            got = _multi_card(world, mesh_kw, family, ref_f32[family])
         except AssertionError as err:
             failed.append(str(err))
-            print(f"[mesh] {world} NCCL ranks, {mesh_kw}: FAILED: {err}",
-                  flush=True)
+            print(f"[mesh] {world} NCCL ranks, {family} {mesh_kw}: FAILED: "
+                  f"{err}", flush=True)
             continue
-        multi[json.dumps(mesh_kw)] = got
-        print(f"[mesh] {world} NCCL ranks, {mesh_kw}, f32 step at batch "
-              f"{PARITY_BATCH}: (rank, loss, grad norm, inputs the kernels "
-              f"copied) {got} against the one-card step's {ref_f32} (bars "
-              f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
+        multi[f"{family} {json.dumps(mesh_kw)}"] = got
+        print(f"[mesh] {world} NCCL ranks, {family} {mesh_kw}, f32 step at "
+              f"batch {PARITY_BATCH}: (rank, loss, grad norm, inputs the "
+              f"kernels copied) {got} against the one-card step's "
+              f"{ref_f32[family]} (bars {F32_LOSS_RTOL}, {F32_NORM_RTOL})",
+              flush=True)
     world, mesh_kw = BF16_SP_CASE
     if world > n_cards:
         print(f"[mesh] {n_cards} card(s): phase 6's bf16 run under {mesh_kw}"
@@ -1595,23 +1841,26 @@ def multi_card(n_cards, ref_f32, ref_bf16) -> dict:
 
 
 def multi_card_only(card_label) -> int:
-    """``chip_smoke.py --multi-card``: phase 6's f32 flash step and bf16
-    run on card 0, then the multi-card cases against them, and nothing
-    else (the kernels are built first).  Needs two cards or more."""
+    """``chip_smoke.py --multi-card``: phase 6's and phase 6e's f32 flash
+    steps and phase 6's bf16 run on card 0, then the multi-card cases
+    against them, and nothing else (the kernels are built first).  Needs
+    two cards or more."""
     from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
 
     n_cards = torch.cuda.device_count()
     print(f"[mesh] torch.cuda.device_count()={n_cards}", flush=True)
     if n_cards < 2:
         raise RuntimeError("--multi-card needs two cards or more")
-    cfg = GPT2Config(remat=False, dtype=torch.float32)
-    trainer = ShardedPretrainer(cfg)
-    loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
-    ref = (loss, trainer.opt.last_grad_norm.item())
-    del trainer
-    print(f"[mesh] one-card f32 step at batch {PARITY_BATCH}, TF32 off: "
-          f"loss {ref[0]:.8f} grad norm {ref[1]:.8f} on {card_label}",
-          flush=True)
+    ref = {}
+    for family, cfg in (("gpt", GPT2Config(remat=False, dtype=torch.float32)),
+                        ("gpt-moe", moe_config(dtype=torch.float32))):
+        trainer = ShardedPretrainer(cfg)
+        loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+        ref[family] = (loss, trainer.opt.last_grad_norm.item())
+        del trainer
+        print(f"[mesh] one-card {family} f32 step at batch {PARITY_BATCH}, "
+              f"TF32 off: loss {ref[family][0]:.8f} grad norm "
+              f"{ref[family][1]:.8f} on {card_label}", flush=True)
     trainer = ShardedPretrainer(GPT2Config(remat=False))
     batch = _train_batch(trainer.config, TRAIN_BATCH, 0)
     losses, t_start = [], None
@@ -1633,9 +1882,45 @@ def multi_card_only(card_label) -> int:
     return 0
 
 
+def gloo_gang_only() -> int:
+    """``chip_smoke.py --gloo-gang``: the f32 step of every case of
+    MULTI_CARD_CASES on a gloo gang of CPU processes at GLOO_WIDTHS, each
+    rank against one CPU process's step: this machine's torch on the
+    multi-card meshes' DTensor path without the cards (NCCL needs a card a
+    rank); no kernel runs.  Every case runs; fails at the end if any
+    did."""
+    from ray_tpu_torch.models import ShardedPretrainer
+
+    print(f"[gloo] torch {torch.__version__}: the multi-card cases at "
+          f"{GLOO_WIDTHS} on the CPU", flush=True)
+    failed = []
+    for world, mesh_kw, family in MULTI_CARD_CASES:
+        # a boundary: each case runs and reports, whatever the one before
+        # it raised (a tree without MoE raises at the config)
+        try:
+            cfg = f32_config(family, "cpu")
+            one = ShardedPretrainer(cfg, device="cpu")
+            loss = one.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+            ref = (loss, one.opt.last_grad_norm.item())
+            got = _multi_card(world, mesh_kw, family, ref, device="cpu")
+        except Exception as err:
+            failed.append(f"{family} {mesh_kw}: {err!r}")
+            print(f"[gloo] {world} ranks, {family} {mesh_kw}: FAILED: "
+                  f"{err!r}", flush=True)
+            continue
+        print(f"[gloo] {world} ranks, {family} {mesh_kw}, f32 step at "
+              f"batch {PARITY_BATCH}: (rank, loss, grad norm) "
+              f"{[g[:3] for g in got]} against one process's {ref} (bars "
+              f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
+    if failed:
+        raise AssertionError("gloo cases failed: " + "; ".join(failed))
+    return 0
+
+
 def mesh_train(card, card_label, ref_losses, ref_step_ms, ref_f32):
     """Phase 6's training run through the DTensor path on a one-rank NCCL
-    mesh; then, on two cards or more, the multi-card cases."""
+    mesh; then, on two cards or more, the multi-card cases (``ref_f32``:
+    the one-card f32 step of each model)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -1727,6 +2012,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--gloo-gang"]:
+        rc = gloo_gang_only()
+        print(smi)
+        return rc
+
     # 2. build
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -1753,10 +2043,12 @@ def main() -> int:
     # 5. and 6. the main paths, each with its counters set to 0 just before
     paths = {"serve": serve(label)}
     paths["train"], training = train(card, label)
+    paths["train_moe"], training_moe = train_moe(card, label)
     paths["train_llama"], training_llama = train_llama(card, label)
     paths["mesh"], mesh = mesh_train(
         card, label, training["losses"], training["step_ms"],
-        training["parity_f32"]["flash"])
+        {"gpt": training["parity_f32"]["flash"],
+         "gpt-moe": training_moe["parity_f32"]["flash"]})
     # 6d. ring attention's steps, each ring position in turn
     paths["ring"], ring = ring_one_card(label)
 
@@ -1828,6 +2120,7 @@ def main() -> int:
     backward[-1].update(op_ms=train_row["ms"],
                         op_bound_ms=train_row["bound_ms"], cases=bwd_rows)
     print("[train] result " + json.dumps(training), flush=True)
+    print("[train_moe] result " + json.dumps(training_moe), flush=True)
     print("[train_llama] result " + json.dumps(training_llama), flush=True)
     print("[mesh] result " + json.dumps(mesh), flush=True)
     print("[ring] result " + json.dumps(ring), flush=True)

@@ -10,11 +10,14 @@ The flax tree of ``ray_tpu/models/gpt2.GPT2LMModel`` (numpy arrays, the
     h_{i}/ln_*/scale           -> h.{i}.ln_*.weight
     ln_f/{scale,bias}          -> ln_f.{weight,bias}
     lm_head/kernel (E, V)      -> lm_head.weight        (V, E)
+    h_{i}/moe_mlp/router/kernel -> h.{i}.moe_mlp.router.weight (n_experts, E)
+    h_{i}/moe_mlp/w_in, w_out  -> h.{i}.moe_mlp.w_in, w_out (flax layout)
 
 The serving runner (``llm/model_runner.py``) keeps its weights under the
 same names, so one mapping serves both.  The Llama tree
 (``ray_tpu/models/llama.LlamaLMModel``) follows the same rules
-(``llama_params_from_flax``).  ``flax_paths`` is the naming the other way:
+(``llama_params_from_flax``), and so does the MLP of ``models/mlp.py``
+(``dense_{i}`` and ``head``).  ``flax_paths`` is the naming the other way:
 each parameter of a port model to its flax path.
 """
 

@@ -9,7 +9,12 @@ backward (``attention_impl="flash"``), ring attention over the mesh's
 ``ring_axis`` on the same kernels (``"ring"``, for a sequence split over
 sp), or the naive reference.  ``remat`` recomputes each block in the
 backward (``torch.utils.checkpoint``), and ``lm_loss`` is the f32
-next-token cross entropy.  MoE blocks wait for a later slice.
+next-token cross entropy.  With ``moe_every = k > 0`` every k-th block
+(``i % k == k - 1``) swaps its MLP for the expert-parallel
+``models/moe.MoEMlpBlock``; each such block returns its aux loss beside its
+output, and ``forward(ids, intermediates=terms)`` appends the terms to the
+list ``terms``, where flax sows them (``models/moe.collect_moe_aux_loss``
+sums them).
 
 The parameters may be DTensors (``models/pretrain.ShardedPretrainer`` over
 a mesh): every op here has a DTensor sharding rule (the embedding lookup
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,15 +67,17 @@ class GPT2Config:
     # keeps the outputs of the matrix products and recomputes the rest.
     remat: bool = True
     remat_policy: str = "full"  # "full" | "dots"
+    # MoE: every moe_every-th block has an expert-parallel FFN in place of
+    # its MLP (0: dense everywhere); the experts shard over ep
     moe_every: int = 0
+    n_experts: int = 8
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.attention_impl not in ("flash", "ring", "reference"):
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r}")
-        if self.moe_every > 0:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP.md A5b)")
 
     @staticmethod
     def small() -> "GPT2Config":
@@ -82,13 +90,13 @@ class GPT2Config:
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """``lin`` applied to ``x`` (B, S, E) in ``dtype``.  A DTensor whose
-    positions are split over sp goes through a product batched over B:
-    ``F.linear`` folds B and S into one dim, which DTensor refuses while S
-    is sharded (torch 2.11: "Attempted to flatten multiple dimensions")."""
+    """``lin`` applied to ``x`` (B, S, E) in ``dtype``.  A sharded DTensor
+    goes through a product batched over B: ``F.linear`` folds B and S into
+    one dim, which DTensor (torch 2.11) refuses where S is sharded, "Attempted
+    to flatten multiple dimensions"; its backward meets that fold with S
+    sharded even when the forward's input shards only B (tp x fsdp)."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
-    if _is_dtensor(x) and any(p.is_shard() and 0 < p.dim < x.ndim - 1
-                              for p in x.placements):
+    if _is_dtensor(x) and any(p.is_shard() for p in x.placements):
         w = lin.weight.to(dtype).t()
         out = torch.bmm(x.to(dtype), w.expand(x.shape[0], *w.shape))
         return out if bias is None else out + bias
@@ -158,18 +166,35 @@ class MlpBlock(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, config: GPT2Config):
+    """A pre-LN block: attention, then the MLP, or with ``use_moe`` the
+    expert-parallel FFN ``moe_mlp``, whose block returns ``(x, aux
+    term)``."""
+
+    def __init__(self, config: GPT2Config, use_moe: bool = False):
         super().__init__()
         self.config = config
         self.ln_1 = nn.LayerNorm(config.n_embd, eps=LN_EPS)
         self.attn = Attention(config)
         self.ln_2 = nn.LayerNorm(config.n_embd, eps=LN_EPS)
-        self.mlp = MlpBlock(config)
+        if use_moe:
+            from ray_tpu_torch.models.moe import MoEConfig, MoEMlpBlock
+
+            self.moe_mlp = MoEMlpBlock(MoEConfig(
+                n_experts=config.n_experts, top_k=config.moe_top_k,
+                capacity_factor=config.moe_capacity_factor,
+                d_model=config.n_embd, d_ff=4 * config.n_embd,
+                dtype=config.dtype))
+        else:
+            self.mlp = MlpBlock(config)
 
     def forward(self, x):
         dtype = self.config.dtype
         x = x + self.attn(_layernorm(self.ln_1, x, dtype))
-        return x + self.mlp(_layernorm(self.ln_2, x, dtype))
+        h = _layernorm(self.ln_2, x, dtype)
+        if hasattr(self, "moe_mlp"):
+            out, aux = self.moe_mlp(h)
+            return x + out, aux
+        return x + self.mlp(h)
 
 
 # what remat_policy="dots" keeps from the forward: the outputs of the
@@ -183,7 +208,9 @@ def run_blocks(blocks, x, config, *args):
     """``x`` through ``blocks`` in turn (each called as ``block(x,
     *args)``), each recomputed in the backward when ``config.remat`` is set
     and autograd records: everything (``remat_policy="full"``) or all but
-    ``_DOTS``'s outputs (``"dots"``)."""
+    ``_DOTS``'s outputs (``"dots"``).  Returns (x, the aux terms of the
+    blocks that return ``(x, aux)``, in order).  The terms leave each
+    block as outputs, so a recomputed block changes none of them."""
     if config.remat_policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy: {config.remat_policy!r} "
                          "(expected 'full' or 'dots')")
@@ -191,10 +218,16 @@ def run_blocks(blocks, x, config, *args):
     context_fn = (functools.partial(create_selective_checkpoint_contexts,
                                     _DOTS)
                   if config.remat_policy == "dots" else noop_context_fn)
+    aux = []
     for block in blocks:
-        x = (checkpoint(block, x, *args, use_reentrant=False,
-                        context_fn=context_fn) if remat else block(x, *args))
-    return x
+        out = (checkpoint(block, x, *args, use_reentrant=False,
+                          context_fn=context_fn) if remat
+               else block(x, *args))
+        if isinstance(out, tuple):
+            out, term = out
+            aux.append(term)
+        x = out
+    return x, aux
 
 
 class GPT2LMModel(nn.Module):
@@ -206,18 +239,25 @@ class GPT2LMModel(nn.Module):
         self.config = config
         self.wte = nn.Embedding(config.vocab_size, config.n_embd)
         self.wpe = nn.Embedding(config.n_positions, config.n_embd)
-        self.h = nn.ModuleList(Block(config) for _ in range(config.n_layer))
+        every = config.moe_every
+        self.h = nn.ModuleList(
+            Block(config, every > 0 and i % every == every - 1)
+            for i in range(config.n_layer))
         self.ln_f = nn.LayerNorm(config.n_embd, eps=LN_EPS)
         self.lm_head = nn.Linear(config.n_embd, config.vocab_size,
                                  bias=False)
         self.to(resolve_device(device))
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, intermediates: Optional[list] = None):
+        """The logits; the MoE blocks' aux terms are appended to
+        ``intermediates`` when a list is given."""
         cfg = self.config
         S = input_ids.shape[1]
         x = (_embed(self.wte.weight, input_ids, cfg.dtype)
              + self.wpe.weight[:S].to(cfg.dtype))
-        x = run_blocks(self.h, x, cfg)
+        x, aux = run_blocks(self.h, x, cfg)
+        if intermediates is not None:
+            intermediates.extend(aux)
         x = _layernorm(self.ln_f, x, cfg.dtype)
         return _dense(self.lm_head, x, cfg.dtype)
 

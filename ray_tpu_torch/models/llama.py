@@ -12,13 +12,15 @@ kernel forward and backward, ring attention on the same kernels over
 ``ring_axis`` (after the GQA repeat), or the naive reference; remat
 recomputes each block as ``GPT2LMModel`` does.  RoPE's tables are taken
 at global positions, so a sequence split over sp rotates each token by its
-place in the whole sequence.  MoE blocks (``ROADMAP.md`` A5b) wait for a
-later slice.
+place in the whole sequence.  ``moe_every`` is kept, as the JAX model
+keeps it, for the pretrainer: the blocks stay dense, and the pretrainer's
+loss adds an aux loss of 0.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,9 +57,6 @@ class LlamaConfig:
         if self.attention_impl not in ("flash", "ring", "reference"):
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r}")
-        if self.moe_every > 0:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP.md A5b)")
         if self.n_head % self.n_kv_head:
             raise ValueError("n_head must be a multiple of n_kv_head")
 
@@ -187,14 +186,16 @@ class LlamaLMModel(nn.Module):
                                  bias=False)
         self.to(resolve_device(device))
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, intermediates: Optional[list] = None):
+        """The logits; ``intermediates`` is taken as ``GPT2LMModel``
+        takes it, and these dense blocks append nothing to it."""
         cfg = self.config
         S = input_ids.shape[1]
         x = _embed(self.wte.weight, input_ids, cfg.dtype)
         positions = torch.arange(S, device=self.wte.weight.device)
         cos, sin = (_replicated_like(x, t) for t in rope_frequencies(
             cfg.d_model // cfg.n_head, positions, cfg.rope_theta))
-        x = run_blocks(self.h, x, cfg, cos, sin)
+        x, _ = run_blocks(self.h, x, cfg, cos, sin)
         x = _rmsnorm(self.norm_f, x, cfg.dtype)
         return _dense(self.lm_head, x, cfg.dtype)
 

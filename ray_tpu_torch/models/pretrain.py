@@ -16,16 +16,22 @@ process group is initialised, the parameters are DTensors laid out by the
 family's rules and the batch is sharded over (dp, fsdp) and its sequence
 over sp; DTensor inserts the collectives GSPMD inserts in the JAX trainer
 (NCCL on the card, gloo on the CPU).  With sp > 1 the trainer switches
-flash attention to ring attention, as the JAX trainer does.  AdamW runs on
-each rank's local shards, which is exact because it is elementwise, and
-the clip takes the norm of the whole gradient.  Sharded checkpoints wait
-for the train backend (``ROADMAP.md`` A6).
+flash attention to ring attention, as the JAX trainer does.  The experts
+of an MoE model shard over ep and the batch is replicated over ep, as in
+the JAX trainer.  AdamW runs on each rank's local shards, which is exact
+because it is elementwise, and the clip takes the norm of the whole
+gradient, each shard counted once.  ``save_checkpoint`` and
+``restore_checkpoint`` write and read the parameters and the optimizer's
+whole state through ``torch.distributed.checkpoint`` (orbax's place): each
+rank writes its own shards, and a restore lays them out over the live mesh,
+which may differ from the one that saved them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +42,7 @@ from torch import nn
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.convert import params_from_flax
 from ray_tpu_torch.models.gpt2 import GPT2LMModel, lm_loss
+from ray_tpu_torch.models.moe import MoEMlpBlock, collect_moe_aux_loss
 from ray_tpu_torch.ops.attention import _is_dtensor
 from ray_tpu_torch.parallel.mesh import active_mesh, as_mesh_config, build_mesh
 from ray_tpu_torch.parallel.sharding import (
@@ -176,7 +183,9 @@ def init_params(config, seed: int = 0, device=None
     seeded with ``seed`` from the distribution of its flax initialiser:
     Dense kernels lecun-normal (a normal truncated to two standard
     deviations, scaled to variance 1/fan_in), embeddings normal with
-    variance 1/E, biases 0, LayerNorm and RMSNorm scales 1."""
+    variance 1/E, biases 0, LayerNorm and RMSNorm scales 1, and an MoE
+    block's expert weights normal with standard deviation 0.02/sqrt of
+    their input width (``w_in`` (E, D, F): D; ``w_out`` (E, F, D): F)."""
     cls, _ = _model_family(config)
     model = cls(config, device=device)
     gen = torch.Generator().manual_seed(seed)
@@ -184,6 +193,9 @@ def init_params(config, seed: int = 0, device=None
         for leaf, p in mod.named_parameters(recurse=False):
             if isinstance(mod, nn.Embedding):
                 w = torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5
+            elif isinstance(mod, MoEMlpBlock):  # w_in, w_out
+                w = torch.randn(p.shape, generator=gen) * (
+                    0.02 * p.shape[1] ** -0.5)
             elif leaf == "bias":
                 w = torch.zeros(p.shape)
             elif not isinstance(mod, nn.Linear):  # a norm's scale
@@ -198,6 +210,13 @@ def init_params(config, seed: int = 0, device=None
 
 
 def loss_fn(model: nn.Module, batch: Mapping[str, torch.Tensor]):
+    """``lm_loss``, plus every MoE layer's aux term when the config has
+    ``moe_every > 0`` (0 for a model without MoE blocks, as Llama's)."""
+    if model.config.moe_every > 0:
+        terms = []
+        logits = model(batch["input_ids"], intermediates=terms)
+        return (lm_loss(logits, batch["targets"], batch.get("mask"))
+                + collect_moe_aux_loss(terms))
     logits = model(batch["input_ids"])
     return lm_loss(logits, batch["targets"], batch.get("mask"))
 
@@ -271,13 +290,53 @@ class ShardedPretrainer:
         """(params, optimizer state), as the JAX trainer's ``state``."""
         return dict(self.model.named_parameters()), self.opt.state_dict()
 
-    def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(
-            "sharded checkpoints are not ported yet (ROADMAP.md A6)")
+    def _checkpoint_state(self) -> Dict[str, Any]:
+        """The whole training state as ``torch.distributed.checkpoint``
+        writes and reads it: every parameter as it is (a DTensor on a
+        mesh), the update count, and AdamW's ``step``, ``exp_avg`` and
+        ``exp_avg_sq`` of each parameter, the moments laid out as their
+        parameter (DTensors over this rank's local shards on a mesh).  A
+        load writes into these tensors in place.  AdamW's state is made
+        here, as its first step makes it, when no step has run yet."""
+        from torch.distributed.tensor import DTensor
 
+        opt = self.opt
+        state: Dict[str, Any] = {"count": torch.tensor(opt.count)}
+        for (name, p), local in zip(self.model.named_parameters(),
+                                    opt.local):
+            st = opt.adamw.state[local]
+            if not st:
+                st.update(step=torch.tensor(0.0),
+                          exp_avg=torch.zeros_like(local),
+                          exp_avg_sq=torch.zeros_like(local))
+            moments = {k: st[k] for k in ("exp_avg", "exp_avg_sq")}
+            if _is_dtensor(p):
+                moments = {k: DTensor.from_local(
+                    t, p.device_mesh, p.placements, run_check=False,
+                    shape=p.shape, stride=p.stride())
+                    for k, t in moments.items()}
+            state[name] = {"step": st["step"], **moments}
+        return {"params": dict(self.model.named_parameters()),
+                "optimizer": state}
+
+    @torch.no_grad()
+    def save_checkpoint(self, path: str) -> None:
+        """Write the whole training state (parameters and optimizer) to the
+        directory ``path``: each rank writes its own shards."""
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(self._checkpoint_state(),
+                 checkpoint_id=os.path.abspath(path))
+
+    @torch.no_grad()
     def restore_checkpoint(self, path: str) -> None:
-        raise NotImplementedError(
-            "sharded checkpoints are not ported yet (ROADMAP.md A6)")
+        """Load the state ``save_checkpoint`` wrote into this trainer, laid
+        out over this trainer's mesh (the one that saved it may differ)."""
+        import torch.distributed.checkpoint as dcp
+
+        state = self._checkpoint_state()
+        dcp.load(state, checkpoint_id=os.path.abspath(path))
+        self.opt.count = int(state["optimizer"]["count"])
 
     def shard_batch(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's ``input_ids`` and ``targets`` as int64 on the device

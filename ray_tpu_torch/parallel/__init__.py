@@ -4,9 +4,10 @@
 - ``dp``   data parallelism (replicated params, sharded batch)
 - ``fsdp`` fully-sharded data parallelism (params sharded over this axis too)
 - ``tp``   tensor parallelism (weight matrices split)
-- ``sp``   sequence parallelism (ring attention: not ported yet)
-- ``ep``   expert parallelism (MoE: not ported yet)
-- ``pp``   pipeline stages (not ported yet)
+- ``sp``   sequence parallelism (ring attention over the sequence split)
+- ``ep``   expert parallelism (the MoE experts of ``models/moe.py``; the
+           batch is replicated over it)
+- ``pp``   pipeline stages (not ported yet: ``ROADMAP.md`` A7)
 """
 
 from ray_tpu_torch.parallel.mesh import (

@@ -117,7 +117,6 @@ def test_ring_attention_impl_runs_the_ring(monkeypatch):
 
 
 @pytest.mark.parametrize("over,exc", [
-    (dict(moe_every=2), NotImplementedError),
     (dict(attention_impl="bogus"), ValueError),
 ])
 def test_unported_options_raise(over, exc):

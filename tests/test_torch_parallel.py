@@ -10,7 +10,10 @@ mesh is its own test: three steps' losses and gradient norms in f32 within
 1e-5 relative of the one-process trainer and within 1e-4 of the JAX
 trainer, from the same flax initialisation.  A mesh with a sequence split
 (sp) trains through ring attention, held against the JAX trainer under the
-same mesh (its ring, on JAX's virtual CPU devices).
+same mesh (its ring, on JAX's virtual CPU devices).  GPT-2 with MoE
+blocks trains with its experts sharded over ep (beside dp, tp and sp), and
+sharded checkpoints restore a run's next losses: under the mesh that saved
+them, bit for bit, and under another mesh, within 1e-6.
 """
 
 import multiprocessing
@@ -64,7 +67,20 @@ GANG_CASES = {
     "gpt-dp2-sp2": ("gpt", dict(dp=-1, sp=2)),
     "gpt-sp4": ("gpt", dict(dp=1, sp=4)),
     "llama-tp2-sp2": ("llama", dict(dp=1, tp=2, sp=2)),
+    "gpt-moe-dp2-ep2": ("gpt-moe", dict(dp=-1, ep=2)),
+    "gpt-moe-ep2-tp2": ("gpt-moe", dict(dp=1, ep=2, tp=2)),
+    "gpt-moe-sp2-ep2": ("gpt-moe", dict(dp=1, sp=2, ep=2)),
+    "gpt-moe-fsdp2-ep2": ("gpt-moe", dict(dp=1, fsdp=2, ep=2)),
 }
+# (family, the mesh that saves after two steps, the meshes that restore
+# into a fresh trainer and take the next two steps)
+CHECKPOINT_CASES = {
+    "gpt-dp2-tp2": ("gpt", dict(dp=-1, tp=2),
+                    (dict(dp=-1, tp=2), dict(dp=-1))),
+    "gpt-moe-dp2-ep2": ("gpt-moe", dict(dp=-1, ep=2),
+                        (dict(dp=-1, ep=2),)),
+}
+MOE = dict(moe_every=2, n_experts=4, moe_top_k=2)
 # the cases whose JAX reference is the JAX trainer under the same mesh
 SP_CASES = [c for c, (_, kw) in GANG_CASES.items() if kw.get("sp", 1) > 1]
 
@@ -73,9 +89,12 @@ def _configs(family):
     """(JAX config, port config) of a family: f32, flash attention; Llama
     keeps its default remat "full", GPT-2 runs without remat (phase 6's
     setting)."""
-    if family == "gpt":
-        return (JGPT2Config(**GPT_TINY, dtype=jnp.float32, remat=False),
-                GPT2Config(**GPT_TINY, dtype=torch.float32, remat=False))
+    if family in ("gpt", "gpt-moe"):
+        over = MOE if family == "gpt-moe" else {}
+        return (JGPT2Config(**GPT_TINY, **over, dtype=jnp.float32,
+                            remat=False),
+                GPT2Config(**GPT_TINY, **over, dtype=torch.float32,
+                           remat=False))
     return (jllama.LlamaConfig(**LLAMA_TINY, dtype=jnp.float32),
             LlamaConfig(**LLAMA_TINY, dtype=torch.float32))
 
@@ -136,14 +155,15 @@ def _jax_specs(model_cls, config, rules):
     return dict(jsharding._flatten_with_paths(params)[0]), dict(flat)
 
 
-@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("family", ["gpt", "llama", "gpt-moe"])
 def test_partition_specs_match_jax_flipped(family):
-    if family == "gpt":
+    if family != "llama":
+        over = MOE if family == "gpt-moe" else {}
         jparams, jspecs = _jax_specs(
             __import__("ray_tpu.models.gpt2", fromlist=["x"]).GPT2LMModel,
-            JGPT2Config(**GPT_TINY, attention_impl="reference"),
+            JGPT2Config(**GPT_TINY, **over, attention_impl="reference"),
             jsharding.gpt_partition_rules())
-        model = GPT2LMModel(GPT2Config(**GPT_TINY), device="cpu")
+        model = GPT2LMModel(GPT2Config(**GPT_TINY, **over), device="cpu")
         specs = match_partition_rules(gpt_partition_rules(), model)
     else:
         jparams, jspecs = _jax_specs(
@@ -167,7 +187,13 @@ def test_partition_specs_match_jax_flipped(family):
     # the rules' Megatron layout, read off the torch weights
     assert specs["wte.weight"] == ("tp", "fsdp")
     assert specs["lm_head.weight"] == ("tp", "fsdp")
-    if family == "gpt":
+    if family == "gpt-moe":  # the experts keep the flax layout: no flip
+        assert specs["h.1.moe_mlp.w_in"] == ("ep", "fsdp", "tp")
+        assert specs["h.1.moe_mlp.w_out"] == ("ep", "tp", "fsdp")
+        assert specs["h.1.moe_mlp.router.weight"] == ()
+        assert paths["h.1.moe_mlp.router.weight"] == \
+            "h_1/moe_mlp/router/kernel"
+    if family != "llama":
         assert specs["h.0.attn.qkv_proj.weight"] == ("tp", "fsdp")
         assert specs["h.0.attn.out_proj.weight"] == ("fsdp", "tp")
         assert specs["wpe.weight"] == (None, "fsdp")
@@ -197,10 +223,11 @@ def test_placements_follow_the_mesh_order():
 
 
 # --------------------------------------------------------------- gang
-def _gang_rank(rank, init_file, payload_file, results):
+def _gang_rank(rank, init_file, payload_file, ckpt_dir, results):
     """One gloo rank: every case of GANG_CASES in turn, each from the same
-    flax parameters (``payload_file`` holds them and the batches); puts
-    (rank, {case: record}) on ``results``."""
+    flax parameters (``payload_file`` holds them and the batches), then
+    every case of CHECKPOINT_CASES (under ``ckpt_dir``); puts (rank,
+    {case: record}) on ``results``."""
     import pickle
 
     import torch.distributed as dist
@@ -220,29 +247,58 @@ def _gang_rank(rank, init_file, payload_file, results):
                 device="cpu", total_steps=10, params=params[family])
             host = params_from_flax(params[family])
             names = trainer._dmesh.mesh_dim_names
-            tp = names.index("tp") if "tp" in names else None
             # each rank's shards put together give the host value
             whole = all(torch.equal(p.full_tensor(), host[name])
                         for name, p in trainer.model.named_parameters())
-            tp_sharded = [name for name, p in trainer.model.named_parameters()
-                          if tp is not None and p.placements[tp].is_shard()
-                          and p.to_local().numel() < p.numel()]
+
+            def sharded(axis):
+                m = names.index(axis) if axis in names else None
+                return [name for name, p in trainer.model.named_parameters()
+                        if m is not None and p.placements[m].is_shard()
+                        and p.to_local().numel() < p.numel()]
             ids = trainer.shard_batch(batches[0])["input_ids"].to_local()
             steps = []
             for b in batches:
                 loss = trainer.step(b).item()
                 steps.append((loss, trainer.opt.last_grad_norm.item()))
             out[case] = {"steps": steps, "whole": whole,
-                         "tp_sharded": tp_sharded,
+                         "tp_sharded": sharded("tp"),
+                         "ep_sharded": sharded("ep"),
                          "attention_impl": trainer.config.attention_impl,
                          "local_rows": ids.shape[0],
                          "local_positions": ids.shape[1],
                          "mesh": dict(zip(trainer.mesh.mesh_dim_names,
                                           trainer.mesh.mesh.shape))}
         out["primitives"] = _primitives()
+        for case, (family, save_kw, restore_kws) in CHECKPOINT_CASES.items():
+            out["checkpoint " + case] = _checkpoint_case(
+                _configs(family)[1], params[family], batches, save_kw,
+                restore_kws, f"{ckpt_dir}/{case}")
         results.put((rank, out))
     finally:
         dist.destroy_process_group()
+
+
+def _checkpoint_case(cfg, params, batches, save_kw, restore_kws, path):
+    """Two steps under ``save_kw``, a checkpoint, two more steps; then a
+    fresh trainer under each of ``restore_kws`` restores the checkpoint
+    and takes the same two steps.  (the uninterrupted losses, [the
+    restored losses under each mesh])."""
+    after = [batches[2], batches[0]]
+    trainer = ShardedPretrainer(cfg, MeshConfig(**save_kw), lr=0.1,
+                                device="cpu", total_steps=10, params=params)
+    for b in batches[:2]:
+        trainer.step(b)
+    trainer.save_checkpoint(path)
+    want = [trainer.step(b).item() for b in after]
+    got = []
+    for kw in restore_kws:
+        fresh = ShardedPretrainer(cfg, MeshConfig(**kw), lr=0.1,
+                                  device="cpu", total_steps=10,
+                                  params=params)
+        fresh.restore_checkpoint(path)
+        got.append([fresh.step(b).item() for b in after])
+    return want, got
 
 
 def _primitives():
@@ -300,7 +356,7 @@ def references():
     each step of the JAX trainer and of the port's one-process trainer
     from it."""
     out = {}
-    for family in ("gpt", "llama"):
+    for family in ("gpt", "llama", "gpt-moe"):
         jtrainer = _jax_trainer(family)
         init = jax.tree_util.tree_map(np.array, jtrainer.state[0])
         want = _jax_steps(jtrainer)
@@ -334,7 +390,8 @@ def gang(references, tmp_path_factory):
         pickle.dump((params, _batches()), f)
     procs = [ctx.Process(target=_gang_rank,
                          args=(r, str(init_file), str(payload_file),
-                               results), daemon=True)
+                               str(tmp / "checkpoints"), results),
+                         daemon=True)
              for r in range(WORLD)]
     for p in procs:
         p.start()
@@ -393,6 +450,25 @@ def test_gang_matches_one_process_and_jax(case, gang, references):
         assert any(".attn." in n for n in recs[0]["tp_sharded"])
     else:
         assert recs[0]["tp_sharded"] == []
+    # the experts, and only they, over ep
+    experts = [f"h.1.moe_mlp.{w}" for w in ("w_in", "w_out")]
+    assert recs[0]["ep_sharded"] == (experts if sizes["ep"] > 1 else [])
+
+
+@pytest.mark.parametrize("case", list(CHECKPOINT_CASES))
+def test_gang_checkpoint_restores_the_run(case, gang):
+    """A fresh trainer that restores the checkpoint takes the next steps
+    of the uninterrupted run: bit for bit under the mesh that saved it,
+    within 1e-6 under another (dp=4 from dp=2 x tp=2: other sums)."""
+    _, save_kw, restore_kws = CHECKPOINT_CASES[case]
+    recs = [gang[r]["checkpoint " + case] for r in range(WORLD)]
+    assert all(rec == recs[0] for rec in recs)
+    want, got = recs[0]
+    for kw, losses in zip(restore_kws, got):
+        if kw == save_kw:
+            assert losses == want, (kw, losses, want)
+        else:
+            np.testing.assert_allclose(losses, want, rtol=1e-6)
 
 
 def test_gang_sharding_primitives(gang):

@@ -161,10 +161,15 @@ def test_model_grads_match_jax_grad():
                                    rtol=1e-3, atol=1e-5, err_msg=name)
 
 
-def test_init_params_follows_the_flax_initialisers():
-    _, jparams = _jax_params(seed=0)
-    want = params_from_flax(jparams)
-    cfg = GPT2Config(**TINY, dtype=torch.float32)
+@pytest.mark.parametrize("moe", [False, True])
+def test_init_params_follows_the_flax_initialisers(moe):
+    """Every parameter against flax's draw of it: the MoE experts (normal,
+    not truncated) among them."""
+    over = dict(moe_every=2, n_experts=4) if moe else {}
+    jcfg = JConfig(**TINY, **over, dtype=jnp.float32, remat=False)
+    _, jparams = jpre.init_params(jcfg, jax.random.PRNGKey(0))
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, jparams))
+    cfg = GPT2Config(**TINY, **over, dtype=torch.float32)
     _, params = init_params(cfg, seed=0, device="cpu")
     assert set(params) == set(want)
     for name, p in params.items():
@@ -178,6 +183,8 @@ def test_init_params_follows_the_flax_initialisers():
         assert abs(float(got.std()) / std - 1.0) <= 0.1, name
         # a truncated normal stays inside two of its own sigmas
         assert (float(got.abs().max()) <= 1.1 * float(ref.abs().max())), name
+        if name.endswith(("w_in", "w_out")):  # the experts' normal is not
+            assert float(got.abs().max()) > 3 * std, name
 
 
 def test_trainer_losses_match_the_jax_trainer():
@@ -220,9 +227,6 @@ def test_trainer_refuses_what_is_not_ported():
                                                          dp=1),
                                 device="cpu")
     assert trainer.mesh is None  # no process group: plain tensors
-    for fn in (trainer.save_checkpoint, trainer.restore_checkpoint):
-        with pytest.raises(NotImplementedError, match="A6"):
-            fn("/nonexistent")
 
 
 def test_trainer_drops_the_mask_as_the_jax_trainer_does():
@@ -254,11 +258,13 @@ def test_trainer_drops_the_mask_as_the_jax_trainer_does():
     assert abs(masked - got) > 1e-2, masked
 
 
-def test_remat_dots_saves_no_batched_product():
+@pytest.mark.parametrize("moe", [False, True])
+def test_remat_dots_saves_no_batched_product(moe):
     """remat_policy="dots" saves what JAX's dots_with_no_batch_dims_saveable
     saves: the unbatched products (mm, addmm) are not run again in the
     backward, the batched ones (bmm: reference attention's (B*H, S, S)
-    logits and its output) are, as under "full"."""
+    logits and its output, and the MoE block's four einsums, batched over
+    the batch row or the expert) are, as under "full"."""
     from collections import Counter
 
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -278,9 +284,10 @@ def test_remat_dots_saves_no_batched_product():
     counts = {}
     for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
         cfg = GPT2Config(**TINY, dtype=torch.float32, remat=remat,
-                         remat_policy=policy, attention_impl="reference")
+                         remat_policy=policy, attention_impl="reference",
+                         **(dict(moe_every=2, n_experts=4) if moe else {}))
         model, _ = init_params(cfg, seed=4, device="cpu")
-        loss = lm_loss(model(ids), tgt)
+        loss = loss_fn(model, {"input_ids": ids, "targets": tgt})
         with Log() as log:
             loss.backward()
         counts[remat and policy] = log.ops
