@@ -14,7 +14,9 @@ Phases, each fatal on failure:
      with cuobjdump;
   3. forward kernels: each against its plain PyTorch version on the card at
      the shapes the serving path gives it (and the JAX suite's cases), with
-     the plan it chose (variant, KV splits), times beside the plain version,
+     the plan it chose (variant, KV splits), and at phase 6f's
+     microbatches (GPT2LMModel's fused q/k/v layout at batch 4 and 2 in
+     bf16, batch 1 in f32), times beside the plain version,
      one library call and the card's bound; no case launches the combine
      kernel, and every case with KV splits (merged by the launch's last
      CTAs) gives o and lse bit for bit equal to the standalone combine
@@ -23,11 +25,12 @@ Phases, each fatal on failure:
      serving decode's partials;
   3b. backward kernels (dQ, which also writes delta, then dK/dV) against
      flash_attention_bwd_plain on the forward kernel's o and lse, at the
-     training path's shape and ten more cases: the variant each took
+     training path's shape and thirteen more cases (phase 6f's
+     microbatches among them): the variant each took
      (tensor cores for bf16 at D 64 and 128), nothing copied, each result
      repeated bit for bit, the delta dQ wrote bit for bit the standalone
-     delta kernel's, no delta launch; at the training shape and at D = 128
-     the kernels' error against the f32 backward of f32 upcasts at most
+     delta kernel's, no delta launch; at the training shape, at D = 128
+     and at phase 6f's pp = 4 microbatch the kernels' error against the f32 backward of f32 upcasts at most
      1.5x that of autograd through bf16 mha_reference; device time in total
      and per kernel (the standalone delta kernel on its own), the plain
      version, the backward of scaled_dot_product_attention as the library
@@ -73,14 +76,17 @@ Phases, each fatal on failure:
      (losses within phase 6's bf16 bar of phase 6's, launches as phase 6,
      step time beside phase 6's, a traced step's idle share); where the
      machine has the cards, NCCL ranks take phase 6's f32 step under dp=2,
-     tp=2 and sp=2 (two cards; sp through ring attention) and tp=2 x
-     fsdp=2 and sp=2 x tp=2 (four cards), and phase 6e's under ep=2 (two
-     cards) and ep=2 x tp=2 (four), each rank within 1e-5 (loss) and
-     1e-4 (gradient norm) relative of the one-card step, and phase 6's
-     bf16 run under sp=2 (two cards: losses within phase 6's bf16 bar,
+     tp=2, sp=2 and pp=2 (two cards; sp through ring attention, pp
+     through PipelinedPretrainer) and tp=2 x fsdp=2, sp=2 x tp=2 and
+     pp=2 x tp=2 (four cards), and phase 6e's under ep=2 (two cards) and
+     ep=2 x tp=2 (four), each rank within 1e-5 (loss) and 1e-4 (gradient
+     norm) relative of the one-card step (a pipeline's replicated
+     parameters bitwise equal on every rank), and phase 6's bf16 run under
+     sp=2 and under pp=2 (two cards: losses within phase 6's bf16 bar,
      step time beside phase 6's); a line for each case that did not run.
-     ``python3 chip_smoke.py --multi-card`` builds the kernels and runs
-     only the one-card f32 steps and bf16 run and these cases;
+     ``python3 chip_smoke.py --multi-card [AXIS]`` builds the kernels and
+     runs only the one-card f32 steps and bf16 run and these cases (with
+     AXIS, only those with more than one rank on it);
      ``python3 chip_smoke.py --gloo-gang`` runs these cases' f32 steps on
      a gloo gang of CPU processes at tiny widths instead (no kernel): the
      machine's torch on their DTensor path where the cards are missing;
@@ -96,6 +102,18 @@ Phases, each fatal on failure:
      read just after (flash_fwd, dQ and dK/dV sp(sp+1)/2 each, no combine
      or delta launch); the device time summed over the positions beside
      whole-sequence flash's;
+  6f. the pipeline on one card (a main path: one process runs every pp
+     position's ticks, the step functions ``pipeline_apply`` runs on each
+     rank): PipelinedPretrainer without a process group trains
+     GPT-2-small (bf16, flash, no remat) 10 steps at phase 6's batch from
+     phase 6's parameters at pp 2 (M 4) and pp 4 (M 8); losses finite,
+     falling and within phase 6's bf16 bar of phase 6's; every counter set
+     to 0 just before and read just after (flash_fwd, dQ and dK/dV
+     n_layer x M a step, K x M a step at each position, no combine or
+     delta launch); step time beside phase 6's (the cost of microbatching
+     in one process, not a pipeline speed), peak memory, a traced step's
+     idle share; the f32 step at batch 4 (M 4) within 1e-5 (loss) and
+     1e-4 (gradient norm) of phase 6's;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -245,8 +263,17 @@ ATTN_CASES = [
     ("decode_b16_bf16", torch.bfloat16, 16, 12, 1, 1000, 64, True, 999, 0),
     ("spec_decode_f32", torch.float32, 1, 12, 5, 600, 64, True, 595, 0),
     ("misaligned_kv_f32", torch.float32, 1, 12, 128, 300, 64, True, 172, 0),
+    # phase 6f's microbatches in GPT2LMModel's layout: pp = 2 (M = 4) and
+    # pp = 4 (M = 8) at batch 16 in bf16, and its f32 step (batch 4, M = 4)
+    ("pipeline_pp2_fused_qkv_bf16", torch.bfloat16, 4, 12, 1024, 1024, 64,
+     True, 0, 0),
+    ("pipeline_pp4_fused_qkv_bf16", torch.bfloat16, 2, 12, 1024, 1024, 64,
+     True, 0, 0),
+    ("pipeline_fused_qkv_f32", torch.float32, 1, 12, 1024, 1024, 64, True,
+     0, 0),
 ]
-FUSED_QKV_CASES = {"gpt2_fused_qkv_bf16"}
+FUSED_QKV_CASES = {"gpt2_fused_qkv_bf16", "pipeline_pp2_fused_qkv_bf16",
+                   "pipeline_pp4_fused_qkv_bf16", "pipeline_fused_qkv_f32"}
 MISALIGNED_CASES = {"misaligned_kv_f32"}
 # the serving path's own shapes: a 256-token prefill chunk and a decode step
 MAIN_PATH_CASE = "serve_chunk_f32"
@@ -473,12 +500,21 @@ BWD_CASES = [
     ("fully_masked_bf16", torch.bfloat16, 1, 12, 64, 64, 64, True, 0, 1000),
     # bf16 on the CUDA-core kernels (D 32)
     ("d32_causal_bf16", torch.bfloat16, 2, 12, 512, 512, 32, True, 0, 0),
+    # phase 6f's microbatches at pp = 4 (M = 8) in bf16 and its f32 step
+    # (batch 4, M = 4), in the training layout; pp = 2's is fused_qkv_bf16
+    ("pipeline_pp4_fused_qkv_bf16", torch.bfloat16, 2, 12, 1024, 1024, 64,
+     True, 0, 0),
+    ("pipeline_fused_qkv_f32", torch.float32, 1, 12, 1024, 1024, 64, True,
+     0, 0),
 ]
+BWD_FUSED_QKV_CASES = {"fused_qkv_bf16", "pipeline_pp4_fused_qkv_bf16",
+                       "pipeline_fused_qkv_f32"}
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # the training path's own shape
 TRAIN_CASE = "train_bf16"
 # cases held to the bf16 accuracy bar (_bf16_accuracy)
-ACCURACY_CASES = {"train_bf16", "llama_train_bf16", "d128_causal_bf16"}
+ACCURACY_CASES = {"train_bf16", "llama_train_bf16", "d128_causal_bf16",
+                  "pipeline_pp4_fused_qkv_bf16"}
 
 
 def _bwd_bounds(B, H, Sq, Sk, D, esize, pairs, peak, bw):
@@ -558,7 +594,7 @@ def backward_cases(card):
             return torch.randn(*shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(dtype)
 
-        if name == "fused_qkv_bf16":
+        if name in BWD_FUSED_QKV_CASES:
             qkv = randn(B, Sq, 3 * H * D)
             q, k, v = (t.reshape(B, Sq, H, D).transpose(1, 2)
                        for t in qkv.split(H * D, dim=-1))
@@ -1654,18 +1690,180 @@ def train_moe(card, card_label):
                       "parity_bf16": par, "parity_f32": f32}
 
 
+# ------------------------------------------------------------ phase 6f
+# pp of the one-card pipeline runs, M = 2 * pp (the default) each
+PIPELINE_PP = (2, 4)
+# the f32 step's microbatches at PARITY_BATCH rows: one row each
+PIPELINE_F32_MICRO = 4
+
+
+class _Mark(torch.autograd.Function):
+    """The identity, whose backward calls ``fn``: marks where a stage's
+    backward starts (at its output) and where it ends (at its input)."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.fn()
+        return g, None
+
+
+def _count_by_position(trainer) -> list:
+    """Wrap ``trainer``'s stage function so that each position's launches
+    of the flash kernels, in its forward ticks and its backward ticks, add
+    into that position's entry of the list returned."""
+    counts = [dict.fromkeys(RING_KERNELS, 0) for _ in trainer.stages]
+    run = trainer._stage_fn
+
+    def add(r, before):
+        now = _read_counts()
+        for key in RING_KERNELS:
+            counts[r][key] += now[key] - before[key]
+
+    def counted(blocks, h):
+        r = next(i for i, b in enumerate(trainer.stages) if b is blocks)
+        mark = {}
+        h = _Mark.apply(h, lambda: add(r, mark))
+        before = _read_counts()
+        y = run(blocks, h)
+        add(r, before)
+        return _Mark.apply(y, lambda: mark.update(_read_counts()))
+    trainer._stage_fn = counted
+    return counts
+
+
+def train_pipeline(card, card_label, ref) -> dict:
+    """The pipeline on one card: PipelinedPretrainer without a process
+    group runs every pp position's ticks (``pipeline_apply_unrolled``, the
+    step functions ``pipeline_apply`` runs on each rank) on GPT-2-small
+    (bf16, flash, no remat) at phase 6's batch, from phase 6's parameters,
+    at pp 2 and 4; then the f32 step against phase 6's.  ``ref`` is phase
+    6's record.  Returns ({path: launches}, record)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import GPT2Config, PipelinedPretrainer
+    from ray_tpu_torch.parallel import MeshConfig
+
+    cfg = GPT2Config(remat=False)
+    batch = _train_batch(cfg, TRAIN_BATCH, 0)
+    paths, rows = {}, []
+    for pp in PIPELINE_PP:
+        trainer = PipelinedPretrainer(cfg, MeshConfig(pp=pp))
+        if not (trainer.pp_group is None and all(
+                p.device.type == "cuda"
+                for p in trainer.model.parameters())):
+            raise AssertionError("the one-card pipeline is not in one "
+                                 "process on the card")
+        M, K = trainer.n_micro, cfg.n_layer // pp
+        per_position = _count_by_position(trainer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        losses, t_start = [], None
+        for i in range(TRAIN_STEPS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            losses.append(trainer.step(batch))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t_start) / (TRAIN_STEPS - 2)
+        launches = _read_counts()
+        by_position = [dict(c) for c in per_position]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [t.item() for t in losses]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"pp={pp} losses not finite and falling: "
+                                 f"{losses}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+        if rel > BF16_LOSS_RTOL:
+            raise AssertionError(f"pp={pp} losses {losses} against phase "
+                                 f"6's {ref['losses']}: rel {rel:.3e} > "
+                                 f"{BF16_LOSS_RTOL:.3e}")
+        # every stage's blocks once a microbatch: nothing on a bubble tick
+        calls = cfg.n_layer * M * TRAIN_STEPS
+        want = {key: 0 for key in launches}
+        want.update({key: calls for key in RING_KERNELS})
+        want["fused:flash_bwd_delta"] = calls
+        if launches != want:
+            raise AssertionError(f"pp={pp} launches {launches}, expected "
+                                 f"{want}")
+        per = K * M * TRAIN_STEPS
+        if by_position != [dict.fromkeys(RING_KERNELS, per)] * pp:
+            raise AssertionError(f"pp={pp} launches by position "
+                                 f"{by_position}, expected {per} each")
+        wall, busy, _, _ = _trace_step(lambda: trainer.step(batch))
+        del trainer
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"[pipeline] GPT-2-small, pp={pp} in one process on one card "
+              f"(every position's ticks in turn: the cost of {M} "
+              f"microbatches and the schedule's host work, not a pipeline "
+              f"speed), M={M}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"{TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}"
+              f" (max rel {rel:.3e} to phase 6's, bar "
+              f"{BF16_LOSS_RTOL:.3e}); step_ms={step_s * 1e3:.3f} against "
+              f"phase 6's {ref['step_ms']:.3f}; tokens_per_s="
+              f"{tokens / step_s:.1f}; peak_memory_gb={peak_gb:.3f} "
+              f"(phase 6: {ref['peak_memory_gb']:.3f}); traced step "
+              f"wall_ms={wall:.3f} device_busy_ms={busy:.3f} (idle share "
+              f"{1 - busy / wall:.4f}); launches {launches} (n_layer x M = "
+              f"{cfg.n_layer * M} a step each), by position "
+              f"{by_position} (K x M = {K * M} a step each); the replicated "
+              f"parameters are one copy here, shared by the positions (the "
+              f"multi-card pp cases hold each rank's copy bitwise equal) on "
+              f"{card_label}", flush=True)
+
+        t = PipelinedPretrainer(dataclasses.replace(cfg, dtype=torch.float32),
+                                MeshConfig(pp=pp),
+                                n_microbatches=PIPELINE_F32_MICRO)
+        loss = t.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+        norm = t.opt.last_grad_norm.item()
+        del t
+        loss1, norm1 = ref["parity_f32"]["flash"]
+        if not (abs(loss - loss1) <= F32_LOSS_RTOL * abs(loss1)
+                and abs(norm - norm1) <= F32_NORM_RTOL * abs(norm1)):
+            raise AssertionError(f"pp={pp} f32 step (loss {loss}, grad norm "
+                                 f"{norm}) against phase 6's ({loss1}, "
+                                 f"{norm1})")
+        print(f"[pipeline] pp={pp} f32 step at batch {PARITY_BATCH}, M="
+              f"{PIPELINE_F32_MICRO}, TF32 off: loss {loss:.8f} against "
+              f"phase 6's {loss1:.8f} (rel "
+              f"{abs(loss - loss1) / abs(loss1):.3e}, bar {F32_LOSS_RTOL}); "
+              f"grad norm {norm:.8f} against "
+              f"{norm1:.8f} (rel {abs(norm - norm1) / abs(norm1):.3e}, bar "
+              f"{F32_NORM_RTOL})", flush=True)
+        paths[f"pipeline_pp{pp}"] = launches
+        rows.append({"pp": pp, "n_microbatches": M,
+                     "step_ms": step_s * 1e3,
+                     "plain_step_ms": ref["step_ms"],
+                     "tokens_per_s": tokens / step_s,
+                     "peak_memory_gb": peak_gb, "losses": losses,
+                     "launches_by_position": by_position,
+                     "trace": {"wall_ms": wall, "busy_ms": busy,
+                               "idle_share": 1 - busy / wall},
+                     "f32": [loss, norm]})
+    return paths, rows
+
+
 # ------------------------------------------------------------ phase 6c
 MESH_TIMEOUT_S = 300
 # (ranks, mesh, model): each runs where the machine has that many cards;
 # "gpt" is phase 6's model, "gpt-moe" phase 6e's
+# (a mesh with pp > 1 trains through PipelinedPretrainer)
 MULTI_CARD_CASES = ((2, {"dp": 2}, "gpt"), (2, {"dp": 1, "tp": 2}, "gpt"),
                     (2, {"dp": 1, "sp": 2}, "gpt"),
                     (2, {"dp": 1, "ep": 2}, "gpt-moe"),
+                    (2, {"dp": 1, "pp": 2}, "gpt"),
                     (4, {"dp": 1, "fsdp": 2, "tp": 2}, "gpt"),
                     (4, {"dp": 1, "sp": 2, "tp": 2}, "gpt"),
-                    (4, {"dp": 1, "ep": 2, "tp": 2}, "gpt-moe"))
-# phase 6's bf16 run under a sequence split, where two cards exist
-BF16_SP_CASE = (2, {"dp": 1, "sp": 2})
+                    (4, {"dp": 1, "ep": 2, "tp": 2}, "gpt-moe"),
+                    (4, {"dp": 1, "pp": 2, "tp": 2}, "gpt"))
+# phase 6's bf16 run under a sequence split and under a pipeline, where two
+# cards exist
+BF16_CASES = ((2, {"dp": 1, "sp": 2}), (2, {"dp": 1, "pp": 2}))
 
 
 def _free_port() -> int:
@@ -1683,13 +1881,24 @@ def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False,
     6e's (``family="gpt-moe"``), under ``mesh_kw``; with ``bf16_run``,
     phase 6's bf16 run (10 steps at batch TRAIN_BATCH x TRAIN_SEQ) instead,
     its losses and the ms a step of steps 3-10.  With ``device="cpu"``, a
-    gloo rank on the CPU at GLOO_WIDTHS instead."""
+    gloo rank on the CPU at GLOO_WIDTHS instead.  A mesh with pp > 1 trains
+    through PipelinedPretrainer, and its f32 step also reports a digest of
+    each replicated parameter after the step."""
+    import hashlib
+
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+    from ray_tpu_torch.models import (
+        GPT2Config,
+        PipelinedPretrainer,
+        ShardedPretrainer,
+    )
     from ray_tpu_torch.ops import attention as tattn
     from ray_tpu_torch.parallel import MeshConfig
+
+    trainer_cls = (PipelinedPretrainer if mesh_kw.get("pp", 1) > 1
+                   else ShardedPretrainer)
 
     if device == "cuda":
         torch.cuda.set_device(rank)
@@ -1703,7 +1912,7 @@ def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False,
     try:
         if bf16_run:
             cfg = GPT2Config(remat=False)
-            trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw))
+            trainer = trainer_cls(cfg, MeshConfig(**mesh_kw))
             batch = _train_batch(cfg, TRAIN_BATCH, 0)
             losses, t_start = [], None
             for i in range(TRAIN_STEPS):
@@ -1717,15 +1926,23 @@ def _mesh_rank(rank, world, port, mesh_kw, results, bf16_run=False,
             results.put((rank, [t.item() for t in losses], step_ms))
             return
         cfg = f32_config(family, device)
-        trainer = ShardedPretrainer(cfg, MeshConfig(**mesh_kw),
-                                    device=device)
+        trainer = trainer_cls(cfg, MeshConfig(**mesh_kw), device=device)
         # an error in the backward names the forward op it came from
         with torch.autograd.detect_anomaly(check_nan=False):
             loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
         # what the kernels' alignment checks copied from the local shards
         copied = {"fwd": (tattn.LAST_PLAN or {}).get("copied"),
                   "bwd": (tattn.LAST_BWD_PLAN or {}).get("copied")}
-        results.put((rank, loss, trainer.opt.last_grad_norm.item(), copied))
+        outer = None
+        if trainer_cls is PipelinedPretrainer:
+            outer = {}
+            for name, p in trainer.model.named_parameters():
+                if not name.startswith("h."):
+                    whole = p.full_tensor() if tattn._is_dtensor(p) else p
+                    outer[name] = hashlib.sha256(
+                        whole.detach().cpu().numpy().tobytes()).hexdigest()
+        results.put((rank, loss, trainer.opt.last_grad_norm.item(), copied,
+                     outer))
     finally:
         dist.destroy_process_group()
 
@@ -1772,25 +1989,35 @@ def _multi_card(world, mesh_kw, family, ref, device="cuda"):
     gradient norm against the one-card step ``ref``."""
     got = _gang(world, mesh_kw, family=family, device=device)
     (loss1, norm1) = ref
-    for rank, loss, norm, _ in got:
+    for rank, loss, norm, _, _ in got:
         if not (abs(loss - loss1) <= F32_LOSS_RTOL * abs(loss1)
                 and abs(norm - norm1) <= F32_NORM_RTOL * abs(norm1)):
             raise AssertionError(f"multi-card {family} {mesh_kw} rank "
                                  f"{rank}: loss "
                                  f"{loss} grad norm {norm} against the one-"
                                  f"card step's {loss1}, {norm1}")
-    return got
+    # a pipeline's replicated parameters: bitwise equal on every rank
+    if any(g[4] != got[0][4] for g in got):
+        raise AssertionError(f"multi-card {family} {mesh_kw}: the "
+                             f"replicated parameters differ between ranks")
+    return [g[:4] for g in got]
 
 
-def multi_card(n_cards, ref_f32, ref_bf16) -> dict:
-    """Every case of MULTI_CARD_CASES that ``n_cards`` cards can hold,
+def multi_card(n_cards, ref_f32, ref_bf16, axis=None) -> dict:
+    """Every case of MULTI_CARD_CASES that ``n_cards`` cards can hold (with
+    ``axis``, those with more than one rank on it),
     against the one-card f32 step of its model, ``ref_f32[family]`` (loss,
     gradient norm); then
-    phase 6's bf16 run under BF16_SP_CASE against ``ref_bf16`` (its losses
-    and step ms on one card); a line for each case that did not run.
+    phase 6's bf16 run under each of BF16_CASES against ``ref_bf16`` (its
+    losses and step ms on one card); a line for each case that did not
+    run.
     Every case runs; the phase fails at the end if any did."""
     multi, failed = {}, []
-    for world, mesh_kw, family in MULTI_CARD_CASES:
+    cases = [c for c in MULTI_CARD_CASES
+             if axis is None or c[1].get(axis, 1) > 1]
+    bf16_cases = [c for c in BF16_CASES
+                  if axis is None or c[1].get(axis, 1) > 1]
+    for world, mesh_kw, family in cases:
         if world > n_cards:
             print(f"[mesh] {n_cards} card(s): the {world}-card case "
                   f"{family} {mesh_kw} did not run", flush=True)
@@ -1808,11 +2035,11 @@ def multi_card(n_cards, ref_f32, ref_bf16) -> dict:
               f"kernels copied) {got} against the one-card step's "
               f"{ref_f32[family]} (bars {F32_LOSS_RTOL}, {F32_NORM_RTOL})",
               flush=True)
-    world, mesh_kw = BF16_SP_CASE
-    if world > n_cards:
-        print(f"[mesh] {n_cards} card(s): phase 6's bf16 run under {mesh_kw}"
-              f" did not run", flush=True)
-    else:
+    for world, mesh_kw in bf16_cases:
+        if world > n_cards:
+            print(f"[mesh] {n_cards} card(s): phase 6's bf16 run under "
+                  f"{mesh_kw} did not run", flush=True)
+            continue
         ref_losses, ref_step_ms = ref_bf16
         try:
             got = _gang(world, mesh_kw, bf16_run=True)
@@ -1840,11 +2067,12 @@ def multi_card(n_cards, ref_f32, ref_bf16) -> dict:
     return multi
 
 
-def multi_card_only(card_label) -> int:
-    """``chip_smoke.py --multi-card``: phase 6's and phase 6e's f32 flash
-    steps and phase 6's bf16 run on card 0, then the multi-card cases
-    against them, and nothing else (the kernels are built first).  Needs
-    two cards or more."""
+def multi_card_only(card_label, axis=None) -> int:
+    """``chip_smoke.py --multi-card [AXIS]``: phase 6's and phase 6e's f32
+    flash steps and phase 6's bf16 run on card 0, then the multi-card cases
+    against them (with ``axis``, only those with more than one rank on
+    it), and nothing else (the kernels are built first).  Needs two cards
+    or more."""
     from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
 
     n_cards = torch.cuda.device_count()
@@ -1878,7 +2106,8 @@ def multi_card_only(card_label) -> int:
     print("[mesh] result " + json.dumps(
         {"device_count": n_cards, "one_card_f32": ref,
          "one_card_bf16": ref_bf16,
-         "multi_card": multi_card(n_cards, ref, ref_bf16)}), flush=True)
+         "multi_card": multi_card(n_cards, ref, ref_bf16, axis)}),
+        flush=True)
     return 0
 
 
@@ -2026,8 +2255,8 @@ def main() -> int:
     sass_check(libs)
 
     label = f"{card} ({smi})"
-    if sys.argv[1:] == ["--multi-card"]:
-        rc = multi_card_only(label)
+    if sys.argv[1:2] == ["--multi-card"] and len(sys.argv) <= 3:
+        rc = multi_card_only(label, *sys.argv[2:])
         print(smi)
         return rc
 
@@ -2051,6 +2280,9 @@ def main() -> int:
          "gpt-moe": training_moe["parity_f32"]["flash"]})
     # 6d. ring attention's steps, each ring position in turn
     paths["ring"], ring = ring_one_card(label)
+    # 6f. the pipeline's ticks, each pp position in turn
+    pipeline_paths, pipeline = train_pipeline(card, label, training)
+    paths.update(pipeline_paths)
 
     # 7. kernels line, card line, result line
     def launches(key):
@@ -2124,6 +2356,7 @@ def main() -> int:
     print("[train_llama] result " + json.dumps(training_llama), flush=True)
     print("[mesh] result " + json.dumps(mesh), flush=True)
     print("[ring] result " + json.dumps(ring), flush=True)
+    print("[pipeline] result " + json.dumps(pipeline), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Model zoo of the port: GPT-2 (serving and training, with MoE blocks),
-the Llama family (training), their pretraining step, the MNIST MLP
+the Llama family (training), their pretraining step, pipeline-parallel
+GPT-2 pretraining (``models/pipeline_lm.py``), the MNIST MLP
 (``models/mlp.py``), and the flax param converters."""
 
 from ray_tpu_torch.models.convert import (
@@ -10,6 +11,11 @@ from ray_tpu_torch.models.convert import (
 from ray_tpu_torch.models.gpt2 import GPT2Config, GPT2LMModel, lm_loss
 from ray_tpu_torch.models.llama import LlamaConfig, LlamaLMModel
 from ray_tpu_torch.models.mlp import MLP
+from ray_tpu_torch.models.pipeline_lm import (
+    PipelinedPretrainer,
+    merge_lm_params,
+    split_lm_params,
+)
 from ray_tpu_torch.models.pretrain import (
     ShardedPretrainer,
     clip_by_global_norm,
@@ -21,7 +27,8 @@ from ray_tpu_torch.models.pretrain import (
 )
 
 __all__ = ["GPT2Config", "GPT2LMModel", "LlamaConfig", "LlamaLMModel", "MLP",
-           "ShardedPretrainer", "clip_by_global_norm", "flax_paths",
-           "init_params", "llama_params_from_flax", "lm_loss", "loss_fn",
-           "make_optimizer", "params_from_flax", "train_step",
+           "PipelinedPretrainer", "ShardedPretrainer", "clip_by_global_norm",
+           "flax_paths", "init_params", "llama_params_from_flax", "lm_loss",
+           "loss_fn", "make_optimizer", "merge_lm_params",
+           "params_from_flax", "split_lm_params", "train_step",
            "warmup_cosine_decay"]

@@ -113,17 +113,24 @@ class Optimizer:
     DTensor parameters (a sharded model) are updated through their local
     shards: each gradient is first laid out as its parameter is (the
     reduce-scatter or all-reduce over the axes the parameter is replicated
-    or sharded over), and AdamW's state lives beside each shard."""
+    or sharded over), and AdamW's state lives beside each shard.
+
+    ``replicas`` overrides how many ranks of the default process group hold
+    each element of each parameter, for the clip's norm: ``_replicas`` of a
+    DTensor counts the ranks of its own mesh only, and a pipeline's
+    parameters replicated over pp live on several such meshes (or are plain
+    tensors on every pp rank)."""
 
     def __init__(self, params, lr: float, weight_decay: float, warmup: int,
-                 total_steps: int):
+                 total_steps: int, replicas: Optional[Sequence[int]] = None):
         self.params = list(params)
         self.sharded = any(_is_dtensor(p) for p in self.params)
         with torch.no_grad():
             self.local = ([p.to_local() for p in self.params]
                           if self.sharded else self.params)
-        self.replicas = ([_replicas(p) for p in self.params]
-                         if self.sharded else None)
+        if replicas is None and self.sharded:
+            replicas = [_replicas(p) for p in self.params]
+        self.replicas = replicas
         self.lr, self.warmup, self.total_steps = lr, warmup, total_steps
         # decoupled decay p(1 - lr·wd) is optax's -lr·(update + wd·p), on
         # every parameter: optax's adamw is given no mask
@@ -160,9 +167,9 @@ class Optimizer:
 
 
 def make_optimizer(params, lr: float = 3e-4, weight_decay: float = 0.1,
-                   warmup: int = WARMUP,
-                   total_steps: int = 10_000) -> Optimizer:
-    return Optimizer(params, lr, weight_decay, warmup, total_steps)
+                   warmup: int = WARMUP, total_steps: int = 10_000,
+                   replicas: Optional[Sequence[int]] = None) -> Optimizer:
+    return Optimizer(params, lr, weight_decay, warmup, total_steps, replicas)
 
 
 def _model_family(config):
@@ -235,6 +242,18 @@ def train_step(model: nn.Module, opt: Optimizer,
     return loss.detach()
 
 
+@torch.no_grad()
+def distribute(model: nn.Module, mesh, specs: Mapping[str, Any]) -> None:
+    """Every parameter of ``model`` replaced by the DTensor of its spec
+    (``specs``, by parameter name) on ``mesh``; each rank keeps its own
+    shard of the value all ranks drew from one seed."""
+    for prefix, mod in model.named_modules():
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            mod.register_parameter(leaf, nn.Parameter(host_to_global(
+                p.detach(), mesh, specs[name])))
+
+
 class ShardedPretrainer:
     """Owns the mesh, the model, the optimizer and the step.
 
@@ -271,19 +290,9 @@ class ShardedPretrainer:
         if grouped:
             self.mesh = build_mesh(mesh_config, self.device)
             self._dmesh = active_mesh(self.mesh)
-            self._distribute()
+            distribute(self.model, self._dmesh, self.param_specs)
         self.opt = make_optimizer(self.model.parameters(), lr,
                                   total_steps=total_steps)
-
-    @torch.no_grad()
-    def _distribute(self) -> None:
-        """Every parameter replaced by the DTensor of its spec; each rank
-        keeps its own shard of the value all ranks drew from one seed."""
-        for prefix, mod in self.model.named_modules():
-            for leaf, p in list(mod.named_parameters(recurse=False)):
-                name = f"{prefix}.{leaf}" if prefix else leaf
-                mod.register_parameter(leaf, nn.Parameter(host_to_global(
-                    p.detach(), self._dmesh, self.param_specs[name])))
 
     @property
     def state(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
@@ -362,6 +371,6 @@ class ShardedPretrainer:
         return int(ids.numel() if torch.is_tensor(ids) else np.size(ids))
 
 
-__all__ = ["ShardedPretrainer", "clip_by_global_norm", "init_params",
-           "loss_fn", "make_optimizer", "train_step", "warmup_cosine_decay",
-           "Optimizer"]
+__all__ = ["ShardedPretrainer", "clip_by_global_norm", "distribute",
+           "init_params", "loss_fn", "make_optimizer", "train_step",
+           "warmup_cosine_decay", "Optimizer"]

@@ -7,7 +7,9 @@
 - ``sp``   sequence parallelism (ring attention over the sequence split)
 - ``ep``   expert parallelism (the MoE experts of ``models/moe.py``; the
            batch is replicated over it)
-- ``pp``   pipeline stages (not ported yet: ``ROADMAP.md`` A7)
+- ``pp``   pipeline stages (GPipe over the pp process group,
+           ``parallel/pipeline.py``; ``models/pipeline_lm.py`` trains
+           GPT-2 through it)
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -15,6 +17,11 @@ from ray_tpu_torch.parallel.mesh import (
     build_mesh,
     local_mesh,
     mesh_shape_for,
+)
+from ray_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pipeline_apply_unrolled,
+    stack_stage_params,
 )
 from ray_tpu_torch.parallel.sharding import (
     PartitionRules,
@@ -28,5 +35,6 @@ from ray_tpu_torch.parallel.sharding import (
 __all__ = [
     "MeshConfig", "build_mesh", "local_mesh", "mesh_shape_for",
     "PartitionRules", "gpt_partition_rules", "llama_partition_rules",
-    "match_partition_rules", "shard_pytree", "with_sharding_constraint",
+    "match_partition_rules", "pipeline_apply", "pipeline_apply_unrolled",
+    "shard_pytree", "stack_stage_params", "with_sharding_constraint",
 ]

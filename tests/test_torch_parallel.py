@@ -13,12 +13,19 @@ trainer, from the same flax initialisation.  A mesh with a sequence split
 same mesh (its ring, on JAX's virtual CPU devices).  GPT-2 with MoE
 blocks trains with its experts sharded over ep (beside dp, tp and sp), and
 sharded checkpoints restore a run's next losses: under the mesh that saved
-them, bit for bit, and under another mesh, within 1e-6.
+them, bit for bit, and under another mesh, within 1e-6.  GPT-2 trains
+through ``PipelinedPretrainer`` over pp × dp, pp × tp and pp = 4, held to
+the JAX ``PipelinedPretrainer`` under the same mesh (1e-4) and to the
+one-process trainer (1e-5), its replicated parameters bitwise equal on
+every pp rank; and ``pipeline_apply`` over the gang's pp group gives the
+unrolled schedule's results exactly, in f32 and bf16.
 """
 
+import hashlib
 import multiprocessing
 import queue
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import optax
@@ -29,8 +36,10 @@ import jax
 import jax.numpy as jnp
 
 from ray_tpu.models import llama as jllama
+from ray_tpu.models import pipeline_lm as jpipe
 from ray_tpu.models import pretrain as jpre
 from ray_tpu.models.gpt2 import GPT2Config as JGPT2Config
+from ray_tpu.models.gpt2 import lm_loss as jlm_loss
 from ray_tpu.parallel import mesh as jmesh
 from ray_tpu.parallel import sharding as jsharding
 from ray_tpu_torch.models import (
@@ -38,8 +47,10 @@ from ray_tpu_torch.models import (
     GPT2LMModel,
     LlamaConfig,
     LlamaLMModel,
+    PipelinedPretrainer,
     ShardedPretrainer,
     flax_paths,
+    merge_lm_params,
 )
 from ray_tpu_torch.parallel import MeshConfig, match_partition_rules
 from ray_tpu_torch.parallel.mesh import mesh_layout
@@ -81,6 +92,14 @@ CHECKPOINT_CASES = {
                         (dict(dp=-1, ep=2),)),
 }
 MOE = dict(moe_every=2, n_experts=4, moe_top_k=2)
+# PipelinedPretrainer's meshes, and M: each rank's rows of the 4-row batch
+# divide into M microbatches (2 rows a rank under dp=2)
+PP_LAYERS = 4  # two stages of two blocks, or four of one
+PP_CASES = {
+    "gpt-pp2-dp2": (dict(dp=-1, pp=2), 2),
+    "gpt-pp2-tp2": (dict(dp=1, pp=2, tp=2), 4),
+    "gpt-pp4": (dict(dp=1, pp=4), 4),
+}
 # the cases whose JAX reference is the JAX trainer under the same mesh
 SP_CASES = [c for c, (_, kw) in GANG_CASES.items() if kw.get("sp", 1) > 1]
 
@@ -88,13 +107,13 @@ SP_CASES = [c for c, (_, kw) in GANG_CASES.items() if kw.get("sp", 1) > 1]
 def _configs(family):
     """(JAX config, port config) of a family: f32, flash attention; Llama
     keeps its default remat "full", GPT-2 runs without remat (phase 6's
-    setting)."""
-    if family in ("gpt", "gpt-moe"):
-        over = MOE if family == "gpt-moe" else {}
-        return (JGPT2Config(**GPT_TINY, **over, dtype=jnp.float32,
-                            remat=False),
-                GPT2Config(**GPT_TINY, **over, dtype=torch.float32,
-                           remat=False))
+    setting); the pipeline's GPT-2 ("gpt-pp") has PP_LAYERS blocks."""
+    if family in ("gpt", "gpt-moe", "gpt-pp"):
+        over = {"gpt-moe": MOE, "gpt-pp": dict(n_layer=PP_LAYERS)}.get(
+            family, {})
+        gpt = {**GPT_TINY, **over}
+        return (JGPT2Config(**gpt, dtype=jnp.float32, remat=False),
+                GPT2Config(**gpt, dtype=torch.float32, remat=False))
     return (jllama.LlamaConfig(**LLAMA_TINY, dtype=jnp.float32),
             LlamaConfig(**LLAMA_TINY, dtype=torch.float32))
 
@@ -269,6 +288,8 @@ def _gang_rank(rank, init_file, payload_file, ckpt_dir, results):
                          "local_positions": ids.shape[1],
                          "mesh": dict(zip(trainer.mesh.mesh_dim_names,
                                           trainer.mesh.mesh.shape))}
+        for case, (mesh_kw, n_micro) in PP_CASES.items():
+            out[case] = _pp_case(params["gpt-pp"], batches, mesh_kw, n_micro)
         out["primitives"] = _primitives()
         for case, (family, save_kw, restore_kws) in CHECKPOINT_CASES.items():
             out["checkpoint " + case] = _checkpoint_case(
@@ -277,6 +298,34 @@ def _gang_rank(rank, init_file, payload_file, ckpt_dir, results):
         results.put((rank, out))
     finally:
         dist.destroy_process_group()
+
+
+def _pp_case(params, batches, mesh_kw, n_micro):
+    """``PipelinedPretrainer`` under ``mesh_kw`` from ``params``: each
+    step's (loss, gradient norm), a digest of each replicated parameter
+    after the steps, and where this rank sits."""
+    from ray_tpu_torch.ops.attention import _is_dtensor
+
+    trainer = PipelinedPretrainer(_configs("gpt-pp")[1],
+                                  MeshConfig(**mesh_kw), lr=0.1,
+                                  device="cpu", total_steps=10,
+                                  n_microbatches=n_micro, params=params)
+    steps = []
+    for b in batches:
+        loss = trainer.step(b).item()
+        steps.append((loss, trainer.opt.last_grad_norm.item()))
+    outer = {}
+    for name, p in trainer.model.named_parameters():
+        if not name.startswith("h."):
+            whole = p.full_tensor() if _is_dtensor(p) else p
+            outer[name] = hashlib.sha256(
+                whole.detach().numpy().tobytes()).hexdigest()
+    return {"steps": steps, "outer": outer,
+            "stage": trainer.mesh.get_coordinate()[0],
+            "blocks": len(trainer.model.h),
+            "sharded": trainer._dmesh is not None,
+            "mesh": dict(zip(trainer.mesh.mesh_dim_names,
+                             trainer.mesh.mesh.shape))}
 
 
 def _checkpoint_case(cfg, params, batches, save_kw, restore_kws, path):
@@ -320,13 +369,54 @@ def _primitives():
     dp, tp = mesh.get_coordinate()
     whole = with_sharding_constraint(w, ())
     rows = with_sharding_constraint(w, (("dp", "tp"),))
-    return {"local_mesh": (host.mesh_dim_names, host.size()),
+    return {"pipeline": _pipeline_primitive(),
+            "local_mesh": (host.mesh_dim_names, host.size()),
             "mesh": mesh.mesh_dim_names,
             "shard": torch.equal(w.to_local(),
                                  x.chunk(2, 0)[tp].chunk(2, 1)[dp]),
             "whole": torch.equal(whole.to_local(), x),
             "rows": torch.equal(rows.to_local(), x.chunk(4, 0)[2 * dp + tp]),
             "placements": [str(p) for p in rows.placements]}
+
+
+def _tanh_stage(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def _pipeline_primitive():
+    """``pipeline_apply`` of tanh stages over the pp group of a pp = 4 mesh
+    on this rank, against ``pipeline_apply_unrolled`` of every stage in
+    this process: outputs and gradients equal exactly, in f32 and in bf16
+    (gloo's P2P and broadcast of bf16)."""
+    from ray_tpu_torch.parallel import (
+        build_mesh,
+        pipeline_apply,
+        pipeline_apply_unrolled,
+    )
+
+    group = build_mesh(MeshConfig(dp=1, pp=WORLD),
+                       device="cpu").get_group("pp")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(2)
+        stages = [{"w": (torch.randn(8, 8, generator=gen) * 0.5).to(dtype),
+                   "b": (torch.randn(8, generator=gen) * 0.1).to(dtype)}
+                  for _ in range(WORLD)]
+        xs = torch.randn(6, 2, 8, generator=gen).to(dtype)
+        ct = torch.randn(6, 2, 8, generator=gen).to(dtype)
+        results = []
+        for run in ("ranked", "unrolled"):
+            params = [{k: t.clone().requires_grad_() for k, t in s.items()}
+                      for s in stages]
+            x = xs.clone().requires_grad_()
+            y = (pipeline_apply(_tanh_stage, params[group.rank()], x,
+                                group=group) if run == "ranked"
+                 else pipeline_apply_unrolled(_tanh_stage, params, x))
+            (y * ct).sum().backward()
+            results.append([y.detach(), x.grad, params[group.rank()]["w"].grad,
+                            params[group.rank()]["b"].grad])
+        out[str(dtype)] = all(torch.equal(a, b) for a, b in zip(*results))
+    return out
 
 
 def _jax_trainer(family, mesh_kw=None, world=1):
@@ -350,12 +440,53 @@ def _jax_steps(jtrainer):
     return np.array(out)
 
 
+def _jax_pp_trainer(case):
+    mesh_kw, n_micro = PP_CASES[case]
+    return jpipe.PipelinedPretrainer(
+        _configs("gpt-pp")[0], jmesh.MeshConfig(**mesh_kw), lr=0.1,
+        devices=jax.devices()[:WORLD], total_steps=10,
+        n_microbatches=n_micro)
+
+
+def _jax_pp_init(jtrainer):
+    """The JAX PipelinedPretrainer's parameters as one flax tree."""
+    outer, stacked = jax.tree_util.tree_map(np.array, jtrainer.state[0])
+    return merge_lm_params(outer, stacked, PP_LAYERS, jtrainer.n_stages)
+
+
+def _jax_pp_steps(case):
+    """The JAX PipelinedPretrainer under the case's mesh: its initial
+    parameters, and (loss, gradient norm) of each step over
+    ``_batches()``."""
+    jtrainer = _jax_pp_trainer(case)
+    init = _jax_pp_init(jtrainer)
+
+    def loss(p, b):
+        return jlm_loss(jtrainer.forward(p, b["input_ids"]), b["targets"])
+    grad_norm = jax.jit(lambda p, b: optax.global_norm(jax.grad(loss)(p, b)))
+    out = []
+    for b in _batches():
+        with jtrainer.mesh:
+            norm = float(grad_norm(jtrainer.state[0],
+                                   jtrainer.shard_batch(b)))
+        out.append((float(jtrainer.step(b)), norm))
+    return init, np.array(out)
+
+
 @pytest.fixture(scope="module")
 def references():
     """Per family: the flax initialisation, and (loss, gradient norm) of
     each step of the JAX trainer and of the port's one-process trainer
-    from it."""
+    from it.  The pipeline's family ("gpt-pp") starts from the JAX
+    PipelinedPretrainer's initialisation; its JAX steps are taken under
+    each case's mesh while the gang runs."""
     out = {}
+    init = _jax_pp_init(_jax_pp_trainer(next(iter(PP_CASES))))
+    trainer = ShardedPretrainer(_configs("gpt-pp")[1], lr=0.1, device="cpu",
+                                total_steps=10, params=init)
+    out["gpt-pp"] = (init, np.array([
+        (trainer.step(b).item(), trainer.opt.last_grad_norm.item())
+        for b in _batches()]), None)
     for family in ("gpt", "llama", "gpt-moe"):
         jtrainer = _jax_trainer(family)
         init = jax.tree_util.tree_map(np.array, jtrainer.state[0])
@@ -377,7 +508,9 @@ def gang(references, tmp_path_factory):
     would wait for its child to import this module.  While the ranks run,
     the JAX trainer takes the sp cases under their meshes (its ring needs
     the mesh; its initialisation is the one-device trainer's): under
-    ``"jax"``, (loss, gradient norm) of each step by case."""
+    ``"jax"``, (loss, gradient norm) of each step by case; and the JAX
+    PipelinedPretrainer the pp cases: under ``"jax_pp"``, its initial
+    parameters and its steps by case."""
     import pickle
     import time
 
@@ -397,10 +530,16 @@ def gang(references, tmp_path_factory):
         p.start()
     deadline, got = time.monotonic() + GANG_TIMEOUT_S, {}
     try:
-        got["jax"] = {case: _jax_steps(_jax_trainer(*GANG_CASES[case],
-                                                    WORLD))
-                      for case in SP_CASES}
-        while len(got) < WORLD + 1 and time.monotonic() < deadline:
+        # two threads: each spends much of its time in XLA's compiler,
+        # outside the interpreter lock
+        with ThreadPoolExecutor(2) as pool:
+            pp = pool.submit(lambda: {case: _jax_pp_steps(case)
+                                      for case in PP_CASES})
+            got["jax"] = {case: _jax_steps(_jax_trainer(*GANG_CASES[case],
+                                                        WORLD))
+                          for case in SP_CASES}
+            got["jax_pp"] = pp.result()
+        while len(got) < WORLD + 2 and time.monotonic() < deadline:
             try:
                 rank, out = results.get(timeout=2)
             except queue.Empty:
@@ -415,9 +554,9 @@ def gang(references, tmp_path_factory):
             if p.is_alive():
                 p.kill()
                 p.join()
-    if len(got) < WORLD + 1 or any(p.exitcode != 0 for p in procs):
+    if len(got) < WORLD + 2 or any(p.exitcode != 0 for p in procs):
         pytest.fail(f"the gloo gang gave results from ranks "
-                    f"{sorted(r for r in got if r != 'jax')}, "
+                    f"{sorted(r for r in got if isinstance(r, int))}, "
                     f"exit codes {[p.exitcode for p in procs]}")
     return got
 
@@ -453,6 +592,43 @@ def test_gang_matches_one_process_and_jax(case, gang, references):
     # the experts, and only they, over ep
     experts = [f"h.1.moe_mlp.{w}" for w in ("w_in", "w_out")]
     assert recs[0]["ep_sharded"] == (experts if sizes["ep"] > 1 else [])
+
+
+@pytest.mark.parametrize("case", list(PP_CASES))
+def test_gang_pipeline_matches_one_process_and_jax(case, gang, references):
+    """PipelinedPretrainer's three steps against the one-process trainer
+    (1e-5) and the JAX PipelinedPretrainer under the same mesh (1e-4), from
+    the same parameters; the replicated parameters (embeddings, ``ln_f``,
+    ``lm_head``) bitwise equal on every rank after the steps, and each rank
+    holding its own stage's blocks."""
+    mesh_kw, _ = PP_CASES[case]
+    recs = [gang[r][case] for r in range(WORLD)]
+    assert all(rec["steps"] == recs[0]["steps"] for rec in recs)
+    got = np.array(recs[0]["steps"])
+    init, one, _ = references["gpt-pp"]
+    jinit, want = gang["jax_pp"][case]
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(jinit), jax.tree_util.tree_leaves(init)))
+    np.testing.assert_allclose(got, one, rtol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert len({tuple(s) for s in got}) == STEPS  # the steps moved
+    assert all(rec["outer"] == recs[0]["outer"] for rec in recs)
+    sizes = MeshConfig(**mesh_kw).resolve(WORLD)
+    assert recs[0]["mesh"] == {a: sizes[a] for a in recs[0]["mesh"]}
+    stages = sorted(rec["stage"] for rec in recs)
+    assert stages == sorted(list(range(sizes["pp"])) * (WORLD // sizes["pp"]))
+    assert all(rec["blocks"] == PP_LAYERS // sizes["pp"] for rec in recs)
+    # DTensors within a stage exactly where another axis splits it
+    assert all(rec["sharded"] == (sizes["pp"] < WORLD) for rec in recs)
+
+
+def test_gang_pipeline_apply_matches_unrolled(gang):
+    """``pipeline_apply`` over the gang's pp group (S = 4) gives
+    ``pipeline_apply_unrolled``'s outputs and gradients bit for bit, in
+    f32 and over gloo in bf16."""
+    for rank in range(WORLD):
+        assert gang[rank]["primitives"]["pipeline"] == {
+            "torch.float32": True, "torch.bfloat16": True}
 
 
 @pytest.mark.parametrize("case", list(CHECKPOINT_CASES))
