@@ -114,6 +114,25 @@ Phases, each fatal on failure:
      in one process, not a pipeline speed), peak memory, a traced step's
      idle share; the f32 step at batch 4 (M 4) within 1e-5 (loss) and
      1e-4 (gradient norm) of phase 6's;
+  6g. the runtime (a main path): ray_tpu_torch.init() (the node must
+     advertise as much "GPU" as torch sees cards); phase 6's initial f32
+     parameters put in the object store once, as CPU tensors; TorchTrainer
+     with one GPU worker actor runs phase 6's bf16 run from them
+     (train.report every step): losses within phase 6's bf16 bar of phase
+     6's (and whether bit for bit), the worker's counters set to 0 just
+     before its steps and read just after (flash_fwd, dQ and dK/dV 120
+     each, no combine or delta launch), step ms from the worker's clock
+     beside phase 6's, the worker's card and PCI bus id, no jax or
+     ray_tpu module and no kernel build in the worker; then the same run
+     under FailureConfig(max_failures=1) failing on purpose after its
+     step-5 checkpoint (ShardedPretrainer.save_checkpoint), which must
+     resume at step 5 and end on the first run's last loss bit for bit.
+     TorchTrainer's multi-card cases, trainer-dp2 (two cards) and
+     trainer-tp2-fsdp2 (four), bring up NCCL themselves and take phase 6's
+     f32 step, each rank within 1e-5 (loss) and 1e-4 (norm) of the
+     one-card step on a card of its own; they run in phase 6c where the
+     cards are, with ``--multi-card`` (``--multi-card trainer``: only
+     they), and on CPU worker actors (gloo) with ``--gloo-gang``;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -2062,6 +2081,10 @@ def multi_card(n_cards, ref_f32, ref_bf16, axis=None) -> dict:
                   f"steps: (rank, losses, step_ms) {got} against one card's "
                   f"losses {ref_losses} (bar {BF16_LOSS_RTOL:.3e}) and "
                   f"step_ms {ref_step_ms:.3f}", flush=True)
+    if axis in (None, "trainer"):
+        got, bad = trainer_cases(n_cards, ref_f32["gpt"])
+        multi.update(got)
+        failed += bad
     if failed:
         raise AssertionError("multi-card cases failed: " + "; ".join(failed))
     return multi
@@ -2108,6 +2131,7 @@ def multi_card_only(card_label, axis=None) -> int:
          "one_card_bf16": ref_bf16,
          "multi_card": multi_card(n_cards, ref, ref_bf16, axis)}),
         flush=True)
+    _runtime_stop()
     return 0
 
 
@@ -2141,6 +2165,13 @@ def gloo_gang_only() -> int:
               f"batch {PARITY_BATCH}: (rank, loss, grad norm) "
               f"{[g[:3] for g in got]} against one process's {ref} (bars "
               f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
+    # TorchTrainer's cases: CPU worker actors of the port's runtime, gloo
+    cfg = f32_config("gpt", "cpu")
+    one = ShardedPretrainer(cfg, device="cpu")
+    loss = one.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+    _, bad = trainer_cases(0, (loss, one.opt.last_grad_norm.item()), "cpu")
+    failed += bad
+    _runtime_stop()
     if failed:
         raise AssertionError("gloo cases failed: " + "; ".join(failed))
     return 0
@@ -2220,6 +2251,327 @@ def mesh_train(card, card_label, ref_losses, ref_step_ms, ref_f32):
                       "multi_card": multi}
 
 
+# ------------------------------------------------------------ phase 6g
+RUNTIME_FAIL_AFTER = 5  # the second run fails after its step-5 checkpoint
+# TorchTrainer's multi-card cases: (ranks, the mesh), phase 6's f32 step
+TRAINER_CASES = {"trainer-dp2": (2, {"dp": 2}),
+                 "trainer-tp2-fsdp2": (4, {"dp": 1, "fsdp": 2, "tp": 2})}
+
+
+def _runtime_loop(config):
+    """Phase 6's bf16 run inside a train worker actor of the port's runtime:
+    ShardedPretrainer on the worker's own card (its default device), from
+    the parameters the driver put in the object store, ``train.report``
+    each step.  With ``config["fail"]``, a checkpoint after step
+    RUNTIME_FAIL_AFTER and, on the first attempt, a failure after it; a
+    resumed attempt restores the checkpoint and takes the steps left."""
+    # from the driver's fit() to here: the gang's placement, the worker's
+    # start and torch.distributed's setup (one host, one wall clock)
+    start_s = time.time() - config["t_fit"]
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch._native import build
+    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+    from ray_tpu_torch.train.torch_config import _pci_bus_id
+
+    cfg = GPT2Config(remat=False)
+    t0 = time.perf_counter()
+    params = ray_tpu_torch.get(config["params"])
+    get_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # torch's lazy imports at a process's first optimizer (torch._dynamo),
+    # timed apart from the build
+    torch.optim.AdamW([torch.zeros(1, device="cuda", requires_grad=True)])
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = ShardedPretrainer(cfg, params=params)
+    init_s = time.perf_counter() - t0
+    del params
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        with ckpt.as_directory() as d:
+            trainer.restore_checkpoint(os.path.join(d, "trainer"))
+            with open(os.path.join(d, "step")) as f:
+                start = int(f.read()) + 1
+    batch = _train_batch(cfg, TRAIN_BATCH, 0)
+    torch.cuda.synchronize()
+    _zero_counts()
+    walls, computes = [], []
+    for i in range(start, TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = trainer.step(batch).item()
+        computes.append(time.perf_counter() - t0)
+        checkpoint = None
+        if config["fail"] and i + 1 == RUNTIME_FAIL_AFTER:
+            d = tempfile.mkdtemp()
+            trainer.save_checkpoint(os.path.join(d, "trainer"))
+            with open(os.path.join(d, "step"), "w") as f:
+                f.write(str(i))
+            checkpoint = train.Checkpoint.from_directory(d)
+        metrics = {"step": i, "loss": loss, "resumed_from": start}
+        if i + 1 == TRAIN_STEPS:
+            metrics.update(
+                launches=_read_counts(), init_s=init_s, get_s=get_s,
+                start_s=start_s, warm_s=warm_s,
+                device=str(trainer.device),
+                card=torch.cuda.get_device_name(),
+                pci_bus_id=_pci_bus_id(torch.cuda.current_device()),
+                builds=list(build.compiled),
+                foreign=[m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")],
+                compute_ms=[t * 1e3 for t in computes],
+                wall_ms=[t * 1e3 for t in walls])
+        train.report(metrics, checkpoint=checkpoint)
+        if checkpoint is not None:
+            shutil.rmtree(d)
+        walls.append(time.perf_counter() - t0)
+        if config["fail"] and ckpt is None and i + 1 == RUNTIME_FAIL_AFTER:
+            raise RuntimeError("failure on purpose after the step-"
+                               f"{RUNTIME_FAIL_AFTER} checkpoint")
+
+
+def runtime_train(card_label, ref):
+    """Phase 6g: phase 6's bf16 run through ``TorchTrainer`` on a worker
+    actor of the port's runtime, against phase 6's ``ref`` (its losses and
+    step ms); then the same run failing on purpose after its step-5
+    checkpoint under ``FailureConfig(max_failures=1)``, which must resume
+    and end on the first run's last loss bit for bit."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.pretrain import init_params
+    from ray_tpu_torch.train import (
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+    )
+
+    t0 = t_phase = time.perf_counter()
+    rt.init(ignore_reinit_error=True)
+    resources = rt.cluster_resources()
+    n_cards = torch.cuda.device_count()
+    print(f"[runtime] ray_tpu_torch.init() in {time.perf_counter() - t0:.3f}"
+          f" s; the node advertises {resources}", flush=True)
+    if resources.get("GPU", 0) != n_cards:
+        raise AssertionError(f"the node advertises {resources.get('GPU')} "
+                             f"GPU, torch sees {n_cards} cards")
+    # phase 6's initial parameters, as ShardedPretrainer draws them, on the
+    # CPU, put once
+    from ray_tpu_torch.models import GPT2Config
+
+    t0 = time.perf_counter()
+    model, _ = init_params(GPT2Config(remat=False), device="cpu")
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    draw_s = time.perf_counter() - t0
+    nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    t0 = time.perf_counter()
+    params_ref = rt.put(params)
+    put_s = time.perf_counter() - t0
+    del model, params
+    torch.cuda.empty_cache()
+    storage = tempfile.mkdtemp(prefix="smoke_runtime_")
+    runs = {}
+    try:
+        for name, fail in (("plain", False), ("resumed", True)):
+            trainer = TorchTrainer(
+                _runtime_loop,
+                train_loop_config={"params": params_ref, "fail": fail,
+                                   "t_fit": time.time()},
+                scaling_config=ScalingConfig(num_workers=1),
+                run_config=RunConfig(
+                    name=f"smoke-{name}", storage_path=storage,
+                    failure_config=FailureConfig(max_failures=int(fail))))
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            runs[name] = (result, time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    result, fit_s = runs["plain"]
+    hist = result.metrics_history
+    last = result.metrics
+    losses = [m["loss"] for m in hist]
+    if [m["step"] for m in hist] != list(range(TRAIN_STEPS)) or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"runtime run reported {hist}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    if rel > BF16_LOSS_RTOL:
+        raise AssertionError(f"runtime losses {losses} against phase 6's "
+                             f"{ref['losses']}: rel {rel:.3e} > "
+                             f"{BF16_LOSS_RTOL:.3e}")
+    calls = GPT2Config().n_layer * TRAIN_STEPS
+    want = {"flash_fwd": calls, "flash_fwd_combine": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkdv": calls, "flash_bwd_dq": calls,
+            "fused:flash_fwd_combine": 0, "fused:flash_bwd_delta": calls}
+    if last["launches"] != want:
+        raise AssertionError(f"the worker's launches {last['launches']}, "
+                             f"expected {want}")
+    if last["foreign"] or last["builds"] or last["device"] != "cuda:0":
+        raise AssertionError(
+            f"the worker loaded {last['foreign']}, built {last['builds']} "
+            f"and trained on {last['device']}")
+    resumed, resumed_s = runs["resumed"]
+    rhist = resumed.metrics_history
+    if resumed.metrics["resumed_from"] != RUNTIME_FAIL_AFTER or \
+            [m["step"] for m in rhist] != list(range(RUNTIME_FAIL_AFTER,
+                                                     TRAIN_STEPS)):
+        raise AssertionError(f"the retried run reported {rhist}")
+    if rhist[-1]["loss"] != losses[-1]:
+        raise AssertionError(f"resumed run's last loss {rhist[-1]['loss']!r}"
+                             f" != the uninterrupted run's {losses[-1]!r}")
+    # steps 3-10 as phase 6 times them, the step alone (host clock around
+    # a step ending in the loss's .item()); and steps 3-9 with the report's
+    # round trip to the driver (the last report cannot carry its own)
+    compute_ms = float(np.mean(last["compute_ms"][2:]))
+    wall_ms = float(np.mean(last["wall_ms"][2:]))
+    bit_equal = losses == ref["losses"]
+    print(f"[runtime] TorchTrainer, 1 GPU worker actor ({last['card']}, "
+          f"PCI {last['pci_bus_id']}, default device {last['device']}), "
+          f"phase 6's bf16 run: losses {[round(x, 4) for x in losses]}, "
+          f"max rel {rel:.3e} to phase 6's (bar {BF16_LOSS_RTOL:.3e}; bit "
+          f"equal: {bit_equal}); step_ms={compute_ms:.3f} (steps 3-10, the "
+          f"step alone) {wall_ms:.3f} (steps 3-9 with the report) against "
+          f"phase 6's "
+          f"{ref['step_ms']:.3f}; fit {fit_s:.3f} s (the "
+          f"worker's loop began {last['start_s']:.3f} s after fit() was "
+          f"called, torch's first optimizer took {last['warm_s']:.3f} s, "
+          f"its ShardedPretrainer built in {last['init_s']:.3f} s); "
+          f"parameters {nbytes / 1e6:.1f} MB drawn on the CPU in "
+          f"{draw_s:.3f} s, put in {put_s:.3f} s, got by the worker in "
+          f"{last['get_s']:.3f} s; worker launches {last['launches']}; "
+          f"kernel builds in the worker {len(last['builds'])}; jax or "
+          f"ray_tpu modules in the worker {last['foreign']} on {card_label}",
+          flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[runtime] FailureConfig(max_failures=1), failure after the "
+          f"step-{RUNTIME_FAIL_AFTER} checkpoint: resumed at step "
+          f"{resumed.metrics['resumed_from']}, last loss "
+          f"{rhist[-1]['loss']!r} == the uninterrupted run's "
+          f"{losses[-1]!r}; fit with the retry {resumed_s:.3f} s; the "
+          f"phase {phase_s:.3f} s", flush=True)
+    return last["launches"], {
+        "losses": losses, "bit_equal_to_phase_6": bit_equal,
+        "max_rel_to_phase_6": rel, "step_ms": compute_ms,
+        "step_with_report_ms": wall_ms, "phase_6_step_ms": ref["step_ms"],
+        "fit_s": fit_s, "init_s": last["init_s"], "put_s": put_s,
+        "start_s": last["start_s"], "warm_s": last["warm_s"],
+        "draw_s": draw_s,
+        "get_s": last["get_s"],
+        "param_bytes": nbytes, "card": last["card"],
+        "pci_bus_id": last["pci_bus_id"], "builds": last["builds"],
+        "resumed_last_loss": rhist[-1]["loss"], "resumed_fit_s": resumed_s,
+        "phase_s": phase_s,
+        "resources": resources}
+
+
+def _trainer_case_loop(config):
+    """One rank of a TorchTrainer multi-card case: phase 6's f32 step
+    (batch PARITY_BATCH, the first parity batch) under ``config["mesh"]``;
+    rank 0 reports every rank's (rank, loss, gradient norm, card)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import ShardedPretrainer
+    from ray_tpu_torch.parallel import MeshConfig
+    from ray_tpu_torch.train.torch_config import _pci_bus_id
+
+    device = config["device"]
+    if device == "cuda":
+        # f32 GEMMs without TF32, as in the driver (the model has no
+        # convolution); not through torch.backends, whose module subclasses
+        # do not pickle with this function
+        torch.set_float32_matmul_precision("highest")
+    else:
+        torch.set_num_threads(1)
+    cfg = f32_config("gpt", device)
+    trainer = ShardedPretrainer(cfg, MeshConfig(**config["mesh"]),
+                                device=device)
+    loss = trainer.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
+    card = (_pci_bus_id(torch.cuda.current_device())
+            if device == "cuda" else None)
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, (dist.get_rank(), loss,
+                                  trainer.opt.last_grad_norm.item(), card))
+    train.report({"rows": rows, "backend": dist.get_backend()})
+
+
+def trainer_case(world, mesh_kw, ref, device="cuda"):
+    """A TorchTrainer multi-card case: ``world`` worker actors (a card
+    each, NCCL; or CPU workers, gloo) take phase 6's f32 step under
+    ``mesh_kw``; each rank against ``ref`` (loss, gradient norm), and on the
+    cards a card of its own for each rank."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.train import (
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+    )
+
+    ray_tpu_torch.init(ignore_reinit_error=True)
+    storage = tempfile.mkdtemp(prefix="smoke_trainer_")
+    trainer = TorchTrainer(
+        _trainer_case_loop,
+        train_loop_config={"mesh": mesh_kw, "device": device},
+        scaling_config=ScalingConfig(num_workers=world,
+                                     use_gpu=device == "cuda"),
+        run_config=RunConfig(name=f"smoke-trainer-{world}",
+                             storage_path=storage))
+    try:
+        result = trainer.fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    rows = result.metrics["rows"]
+    loss1, norm1 = ref
+    for rank, loss, norm, _ in rows:
+        if not (abs(loss - loss1) <= F32_LOSS_RTOL * abs(loss1)
+                and abs(norm - norm1) <= F32_NORM_RTOL * abs(norm1)):
+            raise AssertionError(f"TorchTrainer {mesh_kw} rank {rank}: loss "
+                                 f"{loss} grad norm {norm} against "
+                                 f"{loss1}, {norm1}")
+    if device == "cuda" and len({r[3] for r in rows}) != world:
+        raise AssertionError(f"TorchTrainer {mesh_kw}: ranks share a card: "
+                             f"{rows}")
+    return rows, result.metrics["backend"]
+
+
+def trainer_cases(n_cards, ref, device="cuda"):
+    """Every case of TRAINER_CASES that ``n_cards`` cards hold (all of them
+    on the CPU), against the one-card (one-process) f32 step ``ref``; the
+    names of the failed ones."""
+    out, failed = {}, []
+    for case, (world, mesh_kw) in TRAINER_CASES.items():
+        if device == "cuda" and world > n_cards:
+            print(f"[mesh] {n_cards} card(s): {case} did not run",
+                  flush=True)
+            continue
+        try:
+            rows, backend = trainer_case(world, mesh_kw, ref, device)
+        except Exception as err:
+            failed.append(f"{case}: {err!r}")
+            print(f"[mesh] {case} {mesh_kw}: FAILED: {err!r}", flush=True)
+            continue
+        out[case] = rows
+        print(f"[mesh] {case}: TorchTrainer, {world} worker actors "
+              f"({backend}), {mesh_kw}, f32 step at batch {PARITY_BATCH}: "
+              f"(rank, loss, grad norm, card) {rows} against {ref} (bars "
+              f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
+    return out, failed
+
+
+def _runtime_stop():
+    """Shut the port's runtime down (its GCS, nodelet and workers) if this
+    process started it."""
+    rt = sys.modules.get("ray_tpu_torch")
+    if rt is not None and rt.is_initialized():
+        rt.shutdown()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2283,6 +2635,10 @@ def main() -> int:
     # 6f. the pipeline's ticks, each pp position in turn
     pipeline_paths, pipeline = train_pipeline(card, label, training)
     paths.update(pipeline_paths)
+    # 6g. phase 6's run through TorchTrainer on a worker actor of the
+    # port's runtime (the worker zeroes and reads its counters)
+    paths["runtime"], runtime = runtime_train(label, training)
+    _runtime_stop()
 
     # 7. kernels line, card line, result line
     def launches(key):
@@ -2357,6 +2713,7 @@ def main() -> int:
     print("[mesh] result " + json.dumps(mesh), flush=True)
     print("[ring] result " + json.dumps(ring), flush=True)
     print("[pipeline] result " + json.dumps(pipeline), flush=True)
+    print("[runtime] result " + json.dumps(runtime), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

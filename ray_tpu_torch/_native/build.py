@@ -43,6 +43,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each library this
 # process built or found built, by kernel source name
 build_logs: Dict[str, str] = {}
+# the sources this process compiled (a process that found every library
+# built, as a train worker after the driver's build, compiles none)
+compiled: List[str] = []
 
 
 def _nvcc() -> str:
@@ -112,6 +115,7 @@ def build(name: str) -> Path:
         _log_path(out).write_text(proc.stderr)
         os.replace(tmp, out)
         build_logs[name] = proc.stderr
+        compiled.append(name)
     return out
 
 

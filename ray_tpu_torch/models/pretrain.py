@@ -267,7 +267,8 @@ class ShardedPretrainer:
     its axes of more than one rank, and ``step`` takes the same global
     batch on every rank.  ``self.config`` is the config trained: flash
     attention becomes ring attention when sp resolves to more than one
-    rank."""
+    rank.  ``params``, a flax tree as the JAX trainer's or the model's own
+    state dict, are the initial parameters: none is drawn then."""
 
     def __init__(self, config, mesh_config=None, lr: float = 3e-4,
                  device=None, total_steps: int = 10_000,
@@ -280,9 +281,17 @@ class ShardedPretrainer:
             config = dataclasses.replace(config, attention_impl="ring")
         self.config = config
         self.device = resolve_device(device)
-        self.model, _ = init_params(config, device=self.device)
-        if params is not None:
-            self.model.load_state_dict(params_from_flax(params))
+        if params is None:
+            self.model, _ = init_params(config, device=self.device)
+        else:
+            # built on its device, where the default initialisation that
+            # the given parameters overwrite is cheap
+            with torch.device(self.device):
+                self.model = _model_family(config)[0](config,
+                                                      device=self.device)
+            self.model.load_state_dict(
+                params if all(torch.is_tensor(v) for v in params.values())
+                else params_from_flax(params))
         self.model.train()
         self.param_specs = match_partition_rules(
             _model_family(config)[1](), self.model)

@@ -1,0 +1,27 @@
+"""Port of ``ray_tpu/util/scheduling_strategies.py``.
+
+Public scheduling strategies (reference: python/ray/util/scheduling_strategies.py)."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+
+class PlacementGroupSchedulingStrategy:
+    def __init__(self, placement_group, placement_group_bundle_index: int = -1,
+                 placement_group_capture_child_tasks: bool = False):
+        self.placement_group = placement_group
+        self.placement_group_bundle_index = placement_group_bundle_index
+        self.placement_group_capture_child_tasks = placement_group_capture_child_tasks
+
+
+class NodeAffinitySchedulingStrategy:
+    def __init__(self, node_id: Union[str, bytes], soft: bool = False):
+        self.node_id = node_id if isinstance(node_id, bytes) else bytes.fromhex(node_id)
+        self.soft = soft
+
+
+class NodeLabelSchedulingStrategy:
+    def __init__(self, hard: Optional[dict] = None, soft: Optional[dict] = None):
+        self.hard = hard or {}
+        self.soft = soft or {}
