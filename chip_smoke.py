@@ -43,6 +43,22 @@ Phases, each fatal on failure:
      set to 0 just before and read just after, and the forward kernels must
      have run (flash_fwd once per attention call, split launches merging in
      the kernel, flash_fwd_combine never);
+  5s. serving through Serve (a main path): ray_tpu_torch.init() (the node
+     must advertise a GPU), serve.run(llm_deployment(...)) with phase 5's
+     engine settings and one replica, whose InferenceEngine actor owns the
+     card; phase 5's 8 requests at once through the handle, streamed, a
+     thread each, twice: every request ends with its 32 tokens, identical
+     to phase 5's (where one differs, the in-process model's top-two logit
+     gap at the first differing token must be under 1e-4), no page leaked;
+     the engine's process reads every counter 0 before the first round and
+     after it flash_fwd once per attention call, split launches merged in
+     the kernel, no combine or backward launch; it runs on cuda:0 (its
+     PCI bus id printed), loaded no jax or ray_tpu module and built no
+     kernel; tokens/s, TTFT median and max and the mean inter-token gap of
+     each round beside phase 5's, the engine actor's start; where aiohttp
+     is installed, one request over HTTP SSE (serve.start) against the
+     handle's tokens; serve.shutdown() and ray_tpu_torch.shutdown() leave
+     no process of the session;
   6. training (a main path): ShardedPretrainer takes 10 steps of
      GPT-2-small (bf16, flash, no remat) at batch 16 x 1024 on one seeded
      batch; losses finite and falling; every counter set to 0 just before
@@ -977,9 +993,13 @@ def serve(card_label):
                 raise AssertionError(f"request did not finish with 32 "
                                      f"tokens: {res}")
         core.cache.check_leaks()
-        return core, wall, launches, results
+        # each request's mean gap between its tokens, on the engine's clock
+        gaps = [(core._requests[r].last_token_at
+                 - core._requests[r].first_token_at) / (len(res["tokens"]) - 1)
+                for r, res in zip(rids, results)]
+        return core, wall, launches, results, float(np.mean(gaps))
 
-    core, wall, launches, results = run()
+    core, wall, launches, results, itl = run()
     calls = core.runner.attention_calls
     if not (launches["flash_fwd"] > 0 and launches["flash_fwd"] == calls
             and calls % cfg.n_layer == 0):
@@ -992,7 +1012,7 @@ def serve(card_label):
     if any(launches[key] for key in BWD_KERNELS):
         raise AssertionError(f"the serving path launched backward kernels: "
                              f"{launches}")
-    _, _, _, again = run(trace=True)
+    _, _, _, again, _ = run(trace=True)
     if [r["tokens"] for r in results] != [r["tokens"] for r in again]:
         raise AssertionError("a second identical run gave other tokens")
     gen = sum(len(r["tokens"]) for r in results)
@@ -1001,7 +1021,8 @@ def serve(card_label):
           f", 32 tokens each, chunked prefill 256: steps={core.steps} "
           f"wall_s={wall:.4f} tokens_per_s={gen / wall:.2f} "
           f"ttft_median_s={ttft[len(ttft) // 2]:.4f} "
-          f"ttft_max_s={ttft[-1]:.4f} flash_fwd_launches="
+          f"ttft_max_s={ttft[-1]:.4f} itl_mean_s={itl:.5f} "
+          f"flash_fwd_launches="
           f"{launches['flash_fwd']} (= {cfg.n_layer} layers x "
           f"{calls // cfg.n_layer} sequence passes), split launches "
           f"merged in-kernel={launches['fused:flash_fwd_combine']}, "
@@ -1010,7 +1031,250 @@ def serve(card_label):
           flush=True)
     print("[serve] deterministic: second run gave identical tokens; "
           "cache leak check passed", flush=True)
-    return launches
+    return launches, {
+        "core": core, "tokens": [r["tokens"] for r in results],
+        "wall_s": wall, "tokens_per_s": gen / wall,
+        "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "itl_mean_s": itl}
+
+
+# ------------------------------------------------------------ phase 5s
+# the logits bar of phase 4: where greedy tokens differ, the top two logits
+# of the in-process model must be nearer than this (a near tie)
+NEAR_TIE = 1e-4
+
+
+def _top2_gap(core, ids) -> float:
+    """The gap between the two largest next-token logits of ``core``'s
+    model after ``ids``, from a prefill in a cache of its own."""
+    from ray_tpu_torch.llm import CacheConfig, PagedKVCache
+
+    cfg = core.config
+    size = core.cache.config.page_size
+    cache = PagedKVCache(CacheConfig(
+        num_layers=cfg.n_layer, num_heads=cfg.n_head,
+        head_dim=cfg.n_embd // cfg.n_head,
+        num_pages=-(-len(ids) // size), page_size=size), device=core.device)
+    cache.reserve("gap", len(ids))
+    top = np.sort(np.asarray(core.runner.prefill("gap", ids, 0, cache),
+                             np.float64))[-2:]
+    return float(top[1] - top[0])
+
+
+def _port_processes(session_dir: str) -> list:
+    """The processes of the port runtime's session ``session_dir`` (GCS,
+    nodelet, workers), by their command lines."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                args = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        if "ray_tpu_torch._private." in args and session_dir in args:
+            found.append((int(pid), args.replace("\0", " ").strip()))
+    return found
+
+
+def _stream_round(handle, prompts, n_tokens):
+    """Every request sent at once through ``handle``, streamed, each stream
+    read by a thread of its own: the tokens, and the round's wall time,
+    TTFT and mean inter-token gap from the arrival of each event on this
+    process's clock."""
+    import threading
+
+    events = [None] * len(prompts)
+    errors = []
+    barrier = threading.Barrier(len(prompts) + 1)
+
+    def consume(i):
+        try:
+            barrier.wait(60)
+            sent = time.perf_counter()
+            stream = handle.remote({"prompt_ids": prompts[i],
+                                    "max_tokens": n_tokens,
+                                    "stream": True}).result(120)
+            events[i] = (sent, [(time.perf_counter(), e) for e in stream])
+        except Exception as err:
+            errors.append((i, repr(err)))
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"streams failed: {errors}")
+    tokens, ttft, gaps = [], [], []
+    for sent, evs in events:
+        if not evs[-1][1].get("done") or \
+                evs[-1][1]["finish_reason"] != "length":
+            raise AssertionError(f"a stream did not end done: {evs[-1]}")
+        tokens.append([e["token"] for _, e in evs[:-1]])
+        stamps = [t for t, _ in evs[:-1]]
+        ttft.append(stamps[0] - sent)
+        gaps.append((stamps[-1] - stamps[0]) / (len(stamps) - 1))
+    if [len(t) for t in tokens] != [n_tokens] * len(prompts):
+        raise AssertionError(f"token counts {[len(t) for t in tokens]}")
+    ttft.sort()
+    return tokens, {
+        "tokens_per_s": sum(map(len, tokens)) / wall, "wall_s": wall,
+        "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "itl_mean_s": float(np.mean(gaps))}
+
+
+def serve_deployment(card_label, ref):
+    """Phase 5s: phase 5's model and traffic through Serve: the port's
+    runtime, ``llm_deployment`` with one replica whose engine actor owns the
+    card, the 8 requests at once through the handle, streamed, a thread
+    each; the tokens against phase 5's (``ref``), the launches in the
+    engine's process, the process itself, and tokens/s and TTFT beside
+    phase 5's."""
+    import http.client
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.llm import llm_deployment
+
+    cfg, lengths, prompts, params, _ = serving_workload()
+    n_tokens = params.max_tokens
+    t_phase = time.perf_counter()
+    rt.init()
+    session_dir = worker_mod.global_worker().node.session_dir
+    gpus = rt.cluster_resources().get("GPU", 0)
+    if gpus < 1:
+        raise AssertionError(f"the node advertises {gpus} GPU")
+    engine_kwargs = dict(model_config=cfg, device="cuda", seed=0,
+                         page_size=16, num_pages=512, max_batch_tokens=512,
+                         prefill_chunk_tokens=256, engine_name="smoke-serve")
+    try:
+        t0 = time.perf_counter()
+        handle = rt_serve.run(llm_deployment(engine_kwargs=engine_kwargs),
+                              name="smoke-llm", route_prefix="/llm")
+        stats = handle.options(method_name="engine_stats").remote() \
+            .result(120)
+        # the replica answers once its engine actor is up on the card
+        start_s = time.perf_counter() - t0
+        before = stats["process"]["kernel_launches"]
+        if any(before.values()):
+            raise AssertionError(f"the engine launched kernels before the "
+                                 f"requests: {before}")
+        # the first round finds the engine's process cold (its first GEMMs
+        # and kernel loads): its launches are counted; the second is timed
+        tokens, cold = _stream_round(handle, prompts, n_tokens)
+        stats = handle.options(method_name="engine_stats").remote() \
+            .result(60)
+        proc = stats["process"]
+        launches = proc["kernel_launches"]
+        calls = proc["attention_calls"]
+        if stats["kv_pages_free"] != stats["kv_pages_total"]:
+            raise AssertionError(f"the engine leaked pages: {stats}")
+        if not (launches["flash_fwd"] > 0 and launches["flash_fwd"] == calls
+                and calls % cfg.n_layer == 0):
+            raise AssertionError(f"engine flash_fwd launches {launches} != "
+                                 f"attention calls {calls}")
+        if launches["flash_fwd_combine"] or \
+                not launches["fused:flash_fwd_combine"]:
+            raise AssertionError(f"engine launches {launches}: the split-KV "
+                                 f"path did not run merged in the kernel")
+        if any(launches[key] for key in BWD_KERNELS):
+            raise AssertionError(f"the engine launched backward kernels: "
+                                 f"{launches}")
+        foreign = [m for m in proc["packages"]
+                   if m in ("jax", "jaxlib", "flax", "optax", "ray_tpu")]
+        if proc["device"] != "cuda:0" or foreign or proc["kernels_built"]:
+            raise AssertionError(
+                f"the engine ran on {proc['device']}, loaded {foreign} and "
+                f"built {proc['kernels_built']}")
+        again, warm = _stream_round(handle, prompts, n_tokens)
+        stats = handle.options(method_name="engine_stats").remote() \
+            .result(60)
+        if again != tokens or stats["kv_pages_free"] != \
+                stats["kv_pages_total"]:
+            raise AssertionError(f"a second round through Serve gave other "
+                                 f"tokens or leaked pages: {stats}")
+        # greedy tokens against phase 5's in-process run: batch composition
+        # follows arrival here, so a near tie may break the other way
+        same = 0
+        for i, (got, want) in enumerate(zip(tokens, ref["tokens"])):
+            if got == want:
+                same += 1
+                continue
+            pos = next(j for j, (a, b) in enumerate(zip(got, want))
+                       if a != b)
+            gap = _top2_gap(ref["core"], prompts[i] + want[:pos])
+            print(f"[serve-5s] request {i} (prompt {lengths[i]}) differs "
+                  f"from phase 5's at token {pos}: {got[pos]} against "
+                  f"{want[pos]}; top-two logit gap there {gap:.3e} (bar "
+                  f"{NEAR_TIE:.0e})", flush=True)
+            if gap >= NEAR_TIE:
+                raise AssertionError(f"request {i} differs at token {pos} "
+                                     f"with a logit gap of {gap:.3e}")
+        http_line = "HTTP SSE left out: aiohttp is not installed here"
+        if importlib.util.find_spec("aiohttp") is not None:
+            port = rt_serve.start(http_port=0)
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conn.request("POST", "/llm", body=json.dumps(
+                {"prompt_ids": prompts[0], "max_tokens": n_tokens}),
+                headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            sse = []
+            while True:
+                line = resp.fp.readline()
+                if not line or line.strip() == b"data: [DONE]":
+                    break
+                if line.startswith(b"data:"):
+                    sse.append(json.loads(line[len(b"data:"):]))
+            conn.close()
+            sse_tokens = [e["token"] for e in sse if "token" in e]
+            if sse_tokens != tokens[0]:
+                raise AssertionError(f"HTTP SSE tokens {sse_tokens} against "
+                                     f"the handle's {tokens[0]}")
+            http_line = (f"HTTP SSE: request 0 over serve.start(http_port=0)"
+                         f" gave the handle's {len(sse_tokens)} tokens")
+    finally:
+        rt_serve.shutdown()
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (left := _port_processes(session_dir)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if left:
+        raise AssertionError(f"port processes left after shutdown: {left}")
+    gen = sum(len(t) for t in tokens)
+    per_token_ms = (warm["wall_s"] - ref["wall_s"]) / gen * 1e3
+
+    def text(f):
+        return (f"wall_s={f['wall_s']:.4f} tokens_per_s="
+                f"{f['tokens_per_s']:.2f} ttft_median_s="
+                f"{f['ttft_median_s']:.4f} ttft_max_s={f['ttft_max_s']:.4f} "
+                f"itl_mean_s={f['itl_mean_s']:.5f}")
+    print(f"[serve-5s] llm_deployment, 1 replica, engine actor on "
+          f"{proc['device']} (PCI {proc['pci_bus_id']}) started in "
+          f"{start_s:.3f} s; 8 streamed requests of {n_tokens} tokens, "
+          f"twice: the engine's first round {text(cold)}; the second "
+          f"{text(warm)}; phase 5 in process {text(ref)}; the deployment's "
+          f"cost per token (second round) {per_token_ms:.3f} ms on "
+          f"{card_label}", flush=True)
+    print(f"[serve-5s] tokens identical to phase 5's for {same} of "
+          f"{len(prompts)} requests; engine launches {launches} (attention "
+          f"calls {calls}); kernel builds in the engine "
+          f"{len(proc['kernels_built'])}; jax or ray_tpu modules there "
+          f"{foreign}; pages free {stats['kv_pages_free']} of "
+          f"{stats['kv_pages_total']}; no port process left", flush=True)
+    print(f"[serve-5s] {http_line}", flush=True)
+    return launches, {
+        "first_round": cold, "second_round": warm, "start_s": start_s,
+        "per_token_ms": per_token_ms, "identical": same,
+        "pci_bus_id": proc["pci_bus_id"],
+        "phase_s": time.perf_counter() - t_phase}
 
 
 # ------------------------------------------------------------- phase 6
@@ -2622,7 +2886,12 @@ def main() -> int:
     model_forward(random_flax_params(GPT2Config.small(), seed=0))
 
     # 5. and 6. the main paths, each with its counters set to 0 just before
-    paths = {"serve": serve(label)}
+    paths = {}
+    paths["serve"], serving = serve(label)
+    # 5s. phase 5's traffic through Serve, to an engine actor on the card
+    # (the engine's process zeroes nothing: its counts must read 0 before)
+    paths["serve_deployment"], serving_5s = serve_deployment(label, serving)
+    del serving["core"]
     paths["train"], training = train(card, label)
     paths["train_moe"], training_moe = train_moe(card, label)
     paths["train_llama"], training_llama = train_llama(card, label)
@@ -2714,6 +2983,8 @@ def main() -> int:
     print("[ring] result " + json.dumps(ring), flush=True)
     print("[pipeline] result " + json.dumps(pipeline), flush=True)
     print("[runtime] result " + json.dumps(runtime), flush=True)
+    print("[serve] result " + json.dumps(serving), flush=True)
+    print("[serve-5s] result " + json.dumps(serving_5s), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
-"""EngineCore: continuous-batching LLM engine over the paged KV cache.
+"""InferenceEngine: continuous-batching LLM engine over the paged KV cache.
 
 Port of ``ray_tpu/llm/engine.py`` (``encode_text``, ``decode_tokens``,
-``EngineCore``).  `EngineCore` owns the model runner, paged cache and
-iteration scheduler and is driven by `step()` inline, on the device given
-as ``device=`` (the CUDA card unless ``"cpu"`` is passed).  Its model math
-runs the port's ``GPT2Runner``, whose attention is the hand-written flash
-kernel.
-
-Not ported yet (they need the runtime slice): the ``InferenceEngine`` actor
-wrapper and the critical-path annotation of each request's TTFT
-(``_emit_cpath``); ``ttft_decomposition`` still reports it in process.
+``EngineCore``, ``InferenceEngine``).  `EngineCore` owns the model runner,
+paged cache and iteration scheduler and is driven by `step()` — inline, or
+from the actor's background thread — on the device given as ``device=``
+(the CUDA card unless ``"cpu"`` is passed).  Its model math runs the port's
+``GPT2Runner``, whose attention is the hand-written flash kernel.
+`InferenceEngine` is the actor wrapper of the port's runtime: `submit()`
+enqueues a request, `next_output()` long-polls incremental tokens (the serve
+layer's token streams pull through it), `stream()` is a generator method
+usable with ``num_returns='dynamic'``, and `generate()` blocks for the full
+output.  Each request's TTFT decomposition is stamped on the task-event
+stream as a critical-path annotation (``_emit_cpath``).
 
 Thread model: one stepping thread mutates the cache/runner; submit/poll
 methods touch only the scheduler queues and per-request output buffers
@@ -26,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+import ray_tpu_torch
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.llm._metrics import llm_metrics
 from ray_tpu_torch.llm.kv_cache import CacheConfig, PagedKVCache
@@ -325,6 +328,7 @@ class EngineCore:
                 req.first_token_at = now
                 self._metrics["ttft"].observe(now - req.submitted_at,
                                               self._labels)
+                self._emit_cpath(req)
             elif req.last_token_at is not None:
                 gap = now - req.last_token_at
                 req.max_itl = max(req.max_itl, gap)
@@ -377,6 +381,39 @@ class EngineCore:
             "chunks": len(chunks),
             "preemptions": req.preemptions,
         }
+
+    def _emit_cpath(self, req: Request) -> None:
+        """Stamp the finished TTFT decomposition on the task-event stream
+        (CPATH annotation) so the critical-path view reads it
+        cluster-wide.  No-op without a core worker (the inline engines)."""
+        try:
+            from ray_tpu_torch._private.config import RayConfig
+            from ray_tpu_torch._private.worker import global_worker_core
+
+            core = global_worker_core()
+            if core is None or not RayConfig.task_events_enabled:
+                return
+            decomp = self._decompose(req)
+            core.emit_raw_event({
+                "task_id": f"cpath-llm-{req.rid}",
+                "attempt": 0,
+                "name": f"llm_request:{req.rid}",
+                "state": "CPATH",
+                "ts": time.time(),
+                "job_id": core.job_id.hex(),
+                "type": "ANNOTATION",
+                "node_id": core._node_id_hex,
+                "worker_id": core._worker_id_hex,
+                "cpath": {
+                    "kind": "llm_request",
+                    "rid": req.rid,
+                    "engine": self.name,
+                    "ttft_s": decomp["ttft_s"],
+                    "decomposition": decomp,
+                },
+            }, terminal=True)
+        except Exception:
+            pass  # observability must never fail token emission
 
     # --------------------------------------------------------------- read
     def next_output(self, rid: str, cursor: int = 0,
@@ -471,3 +508,127 @@ class EngineCore:
                 "prefix_cache_pages": self.cache.trie_pages,
                 "adapters": sorted(self._adapters),
             }
+
+
+def _process_facts(core: EngineCore) -> Dict[str, Any]:
+    """What the engine's process runs on and has done: its device and the
+    card's PCI address, the runner's attention calls and the attention
+    kernels' launches (``fused:<name>`` for a kernel whose job another did
+    inside it), the kernel libraries it compiled itself, and the top-level
+    packages it has loaded."""
+    import sys
+
+    from ray_tpu_torch._native import build
+    from ray_tpu_torch.ops.attention import FUSED_LAUNCHES, KERNEL_LAUNCHES
+    from ray_tpu_torch.train.torch_config import _pci_bus_id
+
+    device = core.device
+    return {
+        "device": str(device),
+        "pci_bus_id": (_pci_bus_id(device.index) if device.type == "cuda"
+                       else None),
+        "attention_calls": core.runner.attention_calls,
+        "kernel_launches": {
+            **KERNEL_LAUNCHES,
+            **{"fused:" + k: n for k, n in FUSED_LAUNCHES.items()}},
+        "kernels_built": list(build.compiled),
+        "packages": sorted({m.split(".")[0] for m in list(sys.modules)}),
+    }
+
+
+@ray_tpu_torch.remote(num_cpus=0, max_concurrency=32)
+class InferenceEngine:
+    """The engine as an actor: one background stepping thread, concurrent
+    blocking pollers on the actor's executor threads (max_concurrency>1)."""
+
+    def __init__(self, model_config=None, **core_kwargs):
+        core_kwargs.setdefault("engine_name", "engine")
+        self._core = EngineCore(model_config, **core_kwargs)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"llm-engine-{self._core.name}")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                if not self._core.step():
+                    self._core.wait_for_work(0.05)
+            except Exception:
+                import logging
+
+                logging.getLogger(__name__).exception(
+                    "llm engine step failed")
+                time.sleep(0.1)
+
+    # ------------------------------------------------------------ surface
+    def ping(self) -> bool:
+        return True
+
+    def submit(self, prompt, params=None,
+               admission_wait_s: float = 0.0) -> str:
+        return self._core.submit(prompt, params,
+                                 admission_wait_s=admission_wait_s)
+
+    def ttft_decomposition(self, rid: str) -> Dict[str, Any]:
+        return self._core.ttft_decomposition(rid)
+
+    def next_output(self, rid: str, cursor: int = 0,
+                    timeout_s: float = 30.0) -> Dict[str, Any]:
+        return self._core.next_output(rid, cursor, timeout_s)
+
+    def result(self, rid: str) -> Dict[str, Any]:
+        return self._core.result(rid)
+
+    def generate(self, prompt, params=None,
+                 timeout_s: float = 120.0) -> Dict[str, Any]:
+        """Submit and block until terminal (the loop thread steps)."""
+        rid = self._core.submit(prompt, params)
+        cursor = 0
+        deadline = time.monotonic() + timeout_s
+        while True:
+            out = self._core.next_output(
+                rid, cursor, min(5.0, max(0.0, deadline - time.monotonic())))
+            cursor += len(out["tokens"])
+            if out["finished"]:
+                return self._core.result(rid)
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"generate({rid}) exceeded {timeout_s}s")
+
+    def stream(self, prompt, params=None):
+        """Generator method: yields token ids as they are produced.  Use
+        with ``num_returns='dynamic'`` to get one ObjectRef per token
+        through the dynamic-generator machinery, or consume through the
+        serve streaming path."""
+        rid = self._core.submit(prompt, params)
+        cursor = 0
+        while True:
+            out = self._core.next_output(rid, cursor, 30.0)
+            for t in out["tokens"]:
+                yield t
+            cursor += len(out["tokens"])
+            if out["finished"]:
+                if out["error"]:
+                    raise RuntimeError(out["error"])
+                return
+
+    def abort(self, rid: str) -> bool:
+        return self._core.abort(rid)
+
+    def load_adapter(self, adapter_id: str) -> bool:
+        self._core.ensure_adapter(adapter_id)
+        return True
+
+    def loaded_adapters(self) -> List[str]:
+        return self._core.loaded_adapters()
+
+    def stats(self) -> Dict[str, Any]:
+        """The engine's stats, and under ``"process"`` the facts of the
+        process it runs in (``_process_facts``)."""
+        return {**self._core.stats(),
+                "process": _process_facts(self._core)}
+
+    def shutdown(self) -> bool:
+        self._stop.set()
+        return True

@@ -57,7 +57,10 @@ _private/gcs/storage.py runtime_env/__init__.py
 util/__init__.py util/placement_group.py util/scheduling_strategies.py
 air/__init__.py air/result.py train/_checkpoint.py train/storage.py
 train/_session.py train/_metrics.py tune/_single_trial.py
-accelerators/accelerator.py""".split()
+accelerators/accelerator.py
+serve/__init__.py serve/config.py serve/_metrics.py serve/batching.py
+serve/multiplex.py serve/_streaming.py serve/handle.py serve/_replica.py
+serve/_proxy.py llm/admission.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -169,7 +172,74 @@ NODELET_CARDS = [
                                    "worker": w, "cards": cards}
 """),
 ]
+# a replica whose constructor still runs answers no ping: the health check
+# waits on its first ping without a deadline instead of killing it
+SERVE_STARTING = [
+    ("""        self.last_health_check = 0.0
+""", """        self.last_health_check = 0.0
+        # replica actor id -> its first ping, which resolves once its
+        # constructor has run: until then no health-check deadline applies
+        self.starting: Dict[str, Any] = {}
+"""),
+    ("""        return ServeReplica.options(**opts).remote(
+            d.spec["serialized_cls"], d.spec["init_args"],
+            d.spec["init_kwargs"], d.config.max_ongoing_requests,
+            app_name=app, deployment_name=d.name)
+""", """        replica = ServeReplica.options(**opts).remote(
+            d.spec["serialized_cls"], d.spec["init_args"],
+            d.spec["init_kwargs"], d.config.max_ongoing_requests,
+            app_name=app, deployment_name=d.name)
+        d.starting[replica._actor_id.hex()] = replica.ping.remote()
+        return replica
+"""),
+    ("""        for r in replicas:
+            try:
+                ray_tpu_torch.get(r.ping.remote(),
+""", """        for r in replicas:
+            ping = d.starting.get(r._actor_id.hex())
+            if ping is None:
+                ping = r.ping.remote()
+            elif not ray_tpu_torch.wait([ping], timeout=0)[0]:
+                continue  # its constructor still runs
+            else:
+                del d.starting[r._actor_id.hex()]
+            try:
+                ray_tpu_torch.get(ping,
+"""),
+]
+# the engine actor owns a card unless its engine runs on the CPU; without a
+# GPU in the cluster the deployment raises at once
+LLM_ENGINE_CARD = [
+    ("""        self._engine = InferenceEngine.options(num_cpus=0).remote(**kwargs)
+""", """        self._engine = InferenceEngine.options(
+            **_engine_options(kwargs)).remote(**kwargs)
+"""),
+    ("def llm_deployment(engine_kwargs", '''def _engine_options(engine_kwargs: dict) -> dict:
+    """The engine actor owns a card, unless its engine runs on the CPU
+    (``engine_kwargs["device"] == "cpu"``).  A cluster without a ``GPU``
+    raises at once: nothing falls back to the CPU."""
+    if str(engine_kwargs.get("device") or "cuda") == "cpu":
+        return {"num_cpus": 0}
+    if ray_tpu_torch.cluster_resources().get("GPU", 0) < 1:
+        raise RuntimeError(
+            "the LLM engine runs on a CUDA card, and the cluster has no "
+            "GPU; pass engine_kwargs={'device': 'cpu'} to serve on the CPU")
+    return {"num_cpus": 0, "num_gpus": 1}
+
+
+def llm_deployment(engine_kwargs'''),
+    ("""    dep = serve.deployment(
+        LLMServer,""", """    if ray_tpu_torch.is_initialized():
+        _engine_options(dict(engine_kwargs or {}))  # no card: raise now
+    dep = serve.deployment(
+        LLMServer,"""),
+]
 EDITED_COPIES = {
+    # the reference's docstring names its own history
+    "llm/_metrics.py": [
+        ("series ride, PR 1-3).", "series ride).")],
+    "serve/_controller.py": SERVE_STARTING,
+    "llm/deployment.py": LLM_ENGINE_CARD,
     "_private/config.py": [
         ("import os\nimport threading\n",
          "import os\nimport tempfile\nimport threading\n"),
@@ -254,7 +324,10 @@ def test_copy_matches_its_counterpart(rel):
 def test_no_port_module_imports_jax_or_the_jax_package():
     banned = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
     found = []
-    for path in sorted(PORT.rglob("*.py")):
+    paths = sorted(PORT.rglob("*.py"))
+    assert {PORT / "serve" / "_controller.py", PORT / "llm" / "deployment.py",
+            PORT / "llm" / "admission.py"} <= set(paths)
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
