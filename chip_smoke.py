@@ -2406,8 +2406,10 @@ def gloo_gang_only() -> int:
     multi-card meshes' DTensor path without the cards (NCCL needs a card a
     rank); no kernel runs.  Every case runs; fails at the end if any
     did."""
+    from ray_tpu_torch._native import build
     from ray_tpu_torch.models import ShardedPretrainer
 
+    build.build_channel()  # the MPMD cases' workers load it
     print(f"[gloo] torch {torch.__version__}: the multi-card cases at "
           f"{GLOO_WIDTHS} on the CPU", flush=True)
     failed = []
@@ -2434,6 +2436,9 @@ def gloo_gang_only() -> int:
     one = ShardedPretrainer(cfg, device="cpu")
     loss = one.step(_train_batch(cfg, PARITY_BATCH, 1)).item()
     _, bad = trainer_cases(0, (loss, one.opt.last_grad_norm.item()), "cpu")
+    failed += bad
+    # the MPMD cases: stage actors on the CPU, two replicas over the ring
+    _, bad = mpmd_cases(0, "cpu")
     failed += bad
     _runtime_stop()
     if failed:
@@ -2828,6 +2833,405 @@ def trainer_cases(n_cards, ref, device="cuda"):
     return out, failed
 
 
+# ------------------------------------------------------------ phase 6m
+# the MPMD pipeline: TorchTrainer(pipeline_stages=2) over stage actors
+MPMD_STAGES, MPMD_MICRO = 2, 4
+# the loop's lr: its warmup-cosine schedule ramps over 100 steps, so a
+# peak of 1e-2 gives 1e-4 x step, enough for the loss on the loop's fresh
+# seeded batch of each step to fall over 10 steps
+MPMD_LR = 1e-2
+MPMD_TIMEOUT_S = 600
+
+
+def _mpmd_config(job, dtype="bfloat16", batch=TRAIN_BATCH,
+                 steps=TRAIN_STEPS, device=None, widths=None, lr=MPMD_LR):
+    """``gpt2_pipeline_loop``'s config: GPT-2-small (flash, no remat) in
+    ``dtype``, ``batch`` x TRAIN_SEQ rows a step for ``steps`` steps (at
+    ``widths`` and 32 positions instead on the CPU)."""
+    from ray_tpu_torch.models import GPT2Config
+
+    gpt = GPT2Config()
+    model = {"vocab_size": gpt.vocab_size, "n_positions": gpt.n_positions,
+             "n_embd": gpt.n_embd, "n_layer": gpt.n_layer,
+             "n_head": gpt.n_head, "remat": False, "dtype": dtype}
+    seq = TRAIN_SEQ
+    if widths is not None:
+        model.update(widths, n_positions=32)
+        seq = 32
+    return {"steps": steps, "batch_size": batch, "seq_len": seq,
+            "lr": lr, "seed": 0, "timeout_s": MPMD_TIMEOUT_S,
+            "job": job, "device": device, "model": model}
+
+
+def _mpmd_loop(config):
+    """``gpt2_pipeline_loop`` in a stage worker, with its counters set to 0
+    just before the executor's first step and, on the last step's report,
+    what that worker saw: its launches, its card, peak memory, the tensor
+    bytes of the frames it sent on each link, whether each link's channel
+    runs on the native library, the modules it loaded and the kernels it
+    built.  The trainer keeps rank 0's reports only, so each worker also
+    writes every report it made to ``stage<k>-r<replica>.json`` under
+    ``config["smoke_dir"]`` (one host)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch._native import build
+    from ray_tpu_torch.train.pipeline import gpt2_pipeline_loop, schedule
+    from ray_tpu_torch.train.torch_config import _pci_bus_id
+
+    executor = schedule.StageExecutor
+    first_step, seen = executor.train_step, {}
+    report = train.report
+    cuda = config.get("device") in (None, "cuda")
+
+    def counted_step(self, batch):
+        if self.step_idx == 0:
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            seen["ex"] = self
+        return first_step(self, batch)
+
+    def reporting(metrics, checkpoint=None):
+        ex = seen.get("ex")
+        if ex is not None and metrics.get("step") == config["steps"] - 1:
+            if cuda:
+                torch.cuda.synchronize()
+            metrics = dict(
+                metrics, launches=_read_counts(), device=str(ex.device),
+                frame_bytes=dict(ex.frame_bytes),
+                native={k: getattr(link._ch, "_lib", None) is not None
+                        for k, link in ex.links.items()},
+                builds=list(build.compiled),
+                foreign=[m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")])
+            if cuda:
+                metrics.update(
+                    card=torch.cuda.get_device_name(),
+                    pci_bus_id=_pci_bus_id(torch.cuda.current_device()),
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if "loss" in metrics:
+            seen.setdefault("reports", []).append(metrics)
+            if metrics["step"] == config["steps"] - 1:
+                name = f"stage{metrics['stage']}-r{metrics['replica']}.json"
+                with open(os.path.join(config["smoke_dir"], name), "w") as f:
+                    json.dump(seen["reports"], f)
+        return report(metrics, checkpoint=checkpoint)
+
+    executor.train_step, train.report = counted_step, reporting
+    try:
+        gpt2_pipeline_loop(config)
+    finally:
+        executor.train_step, train.report = first_step, report
+
+
+def _mpmd_fit(config, n_stages, workers, gpus_per_worker, name, dp=1):
+    """One TorchTrainer fit of ``_mpmd_loop``; (each stage's reports of
+    replica 0, in step order, by stage; the fit's seconds)."""
+    import tempfile
+
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    storage = tempfile.mkdtemp(prefix="smoke_mpmd_")
+    config = dict(config, smoke_dir=storage)
+    trainer = TorchTrainer(
+        _mpmd_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(
+            num_workers=workers, use_gpu=gpus_per_worker > 0,
+            gpus_per_worker=gpus_per_worker or 1.0),
+        run_config=RunConfig(name=name, storage_path=storage),
+        pipeline_stages=n_stages, num_microbatches=MPMD_MICRO,
+        mesh=(dp, 1) if dp > 1 else None)
+    t0 = time.perf_counter()
+    try:
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        hist = {}
+        for stage in range(n_stages):
+            with open(os.path.join(storage, f"stage{stage}-r0.json")) as f:
+                hist[stage] = json.load(f)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    for stage, ms in hist.items():
+        if [m["step"] for m in ms] != list(range(config["steps"])):
+            raise AssertionError(f"{name} stage {stage} reported {ms}")
+    return hist, fit_s
+
+
+def _stage_line(stage, ms, launches_want) -> dict:
+    """A stage's numbers from its history, checked: its launches, its
+    links on the native channel, no jax or ray_tpu module, no build."""
+    last = ms[-1]
+    if launches_want is not None and last["launches"] != launches_want:
+        raise AssertionError(f"stage {stage}'s launches {last['launches']},"
+                             f" expected {launches_want}")
+    if not all(last["native"].values()) or last["foreign"] or \
+            last["builds"]:
+        raise AssertionError(
+            f"stage {stage}: native channel {last['native']}, loaded "
+            f"{last['foreign']}, built {last['builds']}")
+    keys = ("step_wall_s", "busy_s", "xfer_s", "bubble_s", "bubble_fraction",
+            "comm_s", "dp_wire_bytes")
+    # steps 3-10, as phase 6 times its steps
+    mean = {k: float(np.mean([m[k] for m in ms[2:]])) for k in keys}
+    return {"stage": stage, **mean,
+            **{k: last.get(k) for k in ("launches", "device", "card",
+                                         "pci_bus_id", "peak_memory_gb",
+                                         "frame_bytes", "native",
+                                         "foreign", "builds")}}
+
+
+def _mpmd_f32_step(device="cuda", widths=None) -> dict:
+    """One f32 step at batch PARITY_BATCH (M 4) of the loop's first batch,
+    two stages (each StageExecutor in a thread of this process, over a
+    pair of ShmChannel links) against one; (loss, grad norm) of each."""
+    import dataclasses
+    import threading
+
+    from ray_tpu_torch.experimental.channel import ShmChannel
+    from ray_tpu_torch.models import GPT2Config
+    from ray_tpu_torch.train.pipeline import (
+        GPT2StageModule,
+        StageExecutor,
+        StageLink,
+    )
+    from ray_tpu_torch.train.pipeline.loop import frame_slot_bytes
+
+    cfg = GPT2Config(remat=False, dtype=torch.float32)
+    seq = TRAIN_SEQ
+    if widths is not None:
+        cfg, seq = dataclasses.replace(cfg, **widths, n_positions=32), 32
+    rng = np.random.default_rng(0)  # the loop's step 0 of seed 0
+    batch = {k: rng.integers(0, cfg.vocab_size, (PARITY_BATCH, seq),
+                             dtype=np.int32)
+             for k in ("input_ids", "targets")}
+    full = GPT2StageModule(cfg, 0, 1, device="cpu").init_params(0)
+    kw = dict(n_micro=MPMD_MICRO, lr=MPMD_LR, total_steps=101, params=full)
+    one = StageExecutor(GPT2StageModule(cfg, 0, 1, device=device), **kw)
+    out1 = one.train_step(batch)
+    del one
+    slot = frame_slot_bytes(PARITY_BATCH // MPMD_MICRO, seq, cfg.n_embd, 4)
+    act = ShmChannel(create=True, slot_size=slot, depth=6)
+    grad = ShmChannel(create=True, slot_size=slot, depth=6)
+    links = ({"act_out": StageLink(act, peer_stage=1, role="w"),
+              "grad_in": StageLink(ShmChannel(grad.name), peer_stage=1,
+                                   role="r")},
+             {"act_in": StageLink(ShmChannel(act.name), peer_stage=0,
+                                  role="r"),
+              "grad_out": StageLink(grad, peer_stage=0, role="w")})
+    execs = [StageExecutor(GPT2StageModule(cfg, s, 2, device=device),
+                           links=links[s], **kw) for s in range(2)]
+    errs = []
+
+    def second():
+        try:
+            execs[1].train_step(batch)
+        except Exception as e:  # raised below
+            errs.append(e)
+
+    thread = threading.Thread(target=second)
+    thread.start()
+    out2 = execs[0].train_step(batch)
+    thread.join(300)
+    for ex in execs:
+        ex.close()
+    if errs:
+        raise errs[0]
+    got = {"one": (out1["loss"], out1["grad_norm"]),
+           "two": (out2["loss"], out2["grad_norm"])}
+    (l1, n1), (l2, n2) = got["one"], got["two"]
+    if not (abs(l2 - l1) <= F32_LOSS_RTOL * abs(l1)
+            and abs(n2 - n1) <= F32_NORM_RTOL * abs(n1)):
+        raise AssertionError(f"f32 step, two stages against one: {got} "
+                             f"(bars {F32_LOSS_RTOL}, {F32_NORM_RTOL})")
+    return got
+
+
+def mpmd_train(card_label) -> tuple:
+    """Phase 6m: GPT-2-small's bf16 run through TorchTrainer(
+    gpt2_pipeline_loop, pipeline_stages=2, num_microbatches=4) on two stage
+    worker actors sharing card 0 (gpus_per_worker=0.5), against the same
+    loop at pipeline_stages=1 on one worker; then the f32 step two stages
+    against one.  Ends with ray_tpu_torch.shutdown(), which must leave no
+    process of the session."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.models import GPT2Config
+    from ray_tpu_torch.train.pipeline import theoretical_bubble_fraction
+
+    t_phase = time.perf_counter()
+    rt.init(ignore_reinit_error=True)
+    session_dir = worker_mod.global_worker().node.session_dir
+    try:
+        n_layer = GPT2Config().n_layer
+        calls = (n_layer // MPMD_STAGES) * MPMD_MICRO * TRAIN_STEPS
+        want = {"flash_fwd": calls, "flash_fwd_combine": 0,
+                "flash_bwd_delta": 0, "flash_bwd_dkdv": calls,
+                "flash_bwd_dq": calls, "fused:flash_fwd_combine": 0,
+                "fused:flash_bwd_delta": calls}
+        hist2, fit2_s = _mpmd_fit(_mpmd_config("smoke-mpmd2"), MPMD_STAGES,
+                                  MPMD_STAGES, 0.5, "smoke-mpmd2")
+        stages = [_stage_line(s, hist2[s], want) for s in range(MPMD_STAGES)]
+        buses = {s["pci_bus_id"] for s in stages}
+        if {s["device"] for s in stages} != {"cuda:0"} or len(buses) != 1:
+            raise AssertionError(f"the stage workers are not on one card: "
+                                 f"{[(s['device'], s['pci_bus_id']) for s in stages]}")
+        losses2 = [m["loss"] for m in hist2[0]]
+        if not all(np.isfinite(losses2)) or not losses2[-1] < losses2[0]:
+            raise AssertionError(f"two-stage losses not finite and falling: "
+                                 f"{losses2}")
+        hist1, fit1_s = _mpmd_fit(_mpmd_config("smoke-mpmd1"), 1, 1, 0.5,
+                                  "smoke-mpmd1")
+        one = _stage_line(0, hist1[0], {
+            k: v * MPMD_STAGES for k, v in want.items()})
+        losses1 = [m["loss"] for m in hist1[0]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses2, losses1))
+        if rel > BF16_LOSS_RTOL:
+            raise AssertionError(f"two-stage losses {losses2} against one "
+                                 f"stage's {losses1}: rel {rel:.3e} > "
+                                 f"{BF16_LOSS_RTOL:.3e}")
+        f32 = _mpmd_f32_step()
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (left := _port_processes(session_dir)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if left:
+        raise AssertionError(f"port processes left after shutdown: {left}")
+    theory = theoretical_bubble_fraction(MPMD_STAGES, MPMD_MICRO)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for s in stages:
+        print(f"[mpmd] stage {s['stage']} of {MPMD_STAGES} (M {MPMD_MICRO}) "
+              f"on {s['device']} (PCI {s['pci_bus_id']}), steps 3-10: "
+              f"step_wall_s={s['step_wall_s']:.4f} busy_s={s['busy_s']:.4f} "
+              f"xfer_s={s['xfer_s']:.4f} bubble_s={s['bubble_s']:.4f} "
+              f"bubble_fraction={s['bubble_fraction']:.4f} (1F1B's "
+              f"theoretical {theory:.4f}; both stages share one card, so "
+              f"this is not a pipeline's bubble); peak_memory_gb="
+              f"{s['peak_memory_gb']:.3f}; tensor bytes a frame by link "
+              f"{s['frame_bytes']}; native channel by link {s['native']}; "
+              f"jax or ray_tpu modules {s['foreign']}; kernel builds "
+              f"{s['builds']}; launches {s['launches']}", flush=True)
+    print(f"[mpmd] TorchTrainer(pipeline_stages={MPMD_STAGES}, "
+          f"num_microbatches={MPMD_MICRO}), 2 stage actors at "
+          f"gpus_per_worker=0.5, GPT-2-small bf16 batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, lr {MPMD_LR}: losses "
+          f"{[round(x, 4) for x in losses2]}, max rel {rel:.3e} to one "
+          f"stage's (bar {BF16_LOSS_RTOL:.3e}); tokens_per_s="
+          f"{tokens / stages[0]['step_wall_s']:.1f} (stage 0's step wall); "
+          f"one stage: step_wall_s={one['step_wall_s']:.4f} "
+          f"busy_s={one['busy_s']:.4f} peak_memory_gb="
+          f"{one['peak_memory_gb']:.3f}; fits {fit2_s:.3f} s and "
+          f"{fit1_s:.3f} s; f32 step at batch {PARITY_BATCH}, two stages "
+          f"against one (loss, grad norm): {f32} (bars {F32_LOSS_RTOL}, "
+          f"{F32_NORM_RTOL}); no port process left; the phase "
+          f"{time.perf_counter() - t_phase:.3f} s on {card_label}",
+          flush=True)
+    launches = {k: sum(s["launches"][k] for s in stages)
+                for k in stages[0]["launches"]}
+    return launches, {
+        "stages": stages, "one_stage": one, "losses": losses2,
+        "one_stage_losses": losses1, "max_rel_to_one_stage": rel,
+        "theoretical_bubble_fraction": theory, "f32_step": f32,
+        "fit_s": fit2_s, "one_stage_fit_s": fit1_s,
+        "phase_s": time.perf_counter() - t_phase}
+
+
+# the multi-card MPMD cases (``--multi-card mpmd`` on the cards, their
+# CPU counterparts with ``--gloo-gang``): a stage a card, and two
+# replicas of the two-stage pipeline syncing over the host ring
+MPMD_CASES = {"mpmd-pp2": (2, 1), "mpmd-dp2-pp2": (4, 2)}
+# the f32 dp case at the lr of tests/test_pipeline_3d.py's: AdamW turns
+# the f32 reassociation of the replicas' split batch in gradient elements
+# near 0 into whole steps of the lr, which 1e-2 would carry past 1e-4
+MPMD_DP_BATCH, MPMD_DP_LR = 8, 1e-3
+
+
+def mpmd_cases(n_cards, device="cuda") -> tuple:
+    """``mpmd-pp2``: phase 6m's bf16 run with each stage on a card of its
+    own, against one stage, within the bf16 bar; ``mpmd-dp2-pp2``: two
+    replicas of it in f32 at batch MPMD_DP_BATCH, each on half the batch,
+    syncing gradients over ``util/collective``'s host ring, against one
+    stage on the whole batch, losses within 1e-4.  On the CPU (``device=
+    "cpu"``) the same on CPU worker actors at GLOO_WIDTHS.  Every case runs;
+    (results, failed)."""
+    import ray_tpu_torch as rt
+
+    rt.init(ignore_reinit_error=True)
+    cuda = device == "cuda"
+    widths = None if cuda else GLOO_WIDTHS
+    gpus = 1.0 if cuda else 0
+    out, failed = {}, []
+    steps = TRAIN_STEPS if cuda else 3
+    base = {}
+    for dtype, batch, lr in (("bfloat16", TRAIN_BATCH, MPMD_LR),
+                             ("float32", MPMD_DP_BATCH, MPMD_DP_LR)):
+        cfg = _mpmd_config(f"smoke-mpmd-base-{dtype}", dtype, batch, steps,
+                           device, widths, lr)
+        hist, _ = _mpmd_fit(cfg, 1, 1, gpus, f"smoke-mpmd-base-{dtype}")
+        base[dtype] = [m["loss"] for m in hist[0]]
+    for case, (world, dp) in MPMD_CASES.items():
+        if cuda and world > n_cards:
+            print(f"[mpmd] {n_cards} card(s): {case} did not run",
+                  flush=True)
+            continue
+        dtype, batch, lr = (("float32", MPMD_DP_BATCH, MPMD_DP_LR)
+                            if dp > 1 else ("bfloat16", TRAIN_BATCH, MPMD_LR))
+        try:
+            cfg = _mpmd_config(f"smoke-{case}", dtype, batch, steps, device,
+                               widths, lr)
+            hist, fit_s = _mpmd_fit(cfg, MPMD_STAGES, world, gpus,
+                                    f"smoke-{case}", dp=dp)
+            stages = [_stage_line(s, hist[s], None)
+                      for s in range(MPMD_STAGES)]
+            losses = [m["loss"] for m in hist[0]]
+            if dp > 1:
+                err = max(abs(a - b) for a, b in zip(losses, base[dtype]))
+                bar_text = f"max abs {err:.3e} (bar 1e-4)"
+                ok = err <= 1e-4
+            else:
+                err = max(abs(a - b) / abs(b)
+                          for a, b in zip(losses, base[dtype]))
+                bar_text = f"max rel {err:.3e} (bar {BF16_LOSS_RTOL:.3e})"
+                ok = err <= BF16_LOSS_RTOL
+            if cuda and len({s["pci_bus_id"] for s in stages}) != \
+                    MPMD_STAGES:
+                raise AssertionError(f"{case}: the stages share a card: "
+                                     f"{stages}")
+            if not ok:
+                raise AssertionError(f"{case}: losses {losses} against one "
+                                     f"stage's {base[dtype]}: {bar_text}")
+        except Exception as err:
+            failed.append(f"{case}: {err!r}")
+            print(f"[mpmd] {case}: FAILED: {err!r}", flush=True)
+            continue
+        out[case] = {"losses": losses, "one_stage_losses": base[dtype],
+                     "stages": stages, "fit_s": fit_s}
+        print(f"[mpmd] {case}: TorchTrainer, {world} worker actors "
+              f"({device}), pipeline_stages={MPMD_STAGES}, dp={dp}, "
+              f"{dtype} batch {batch}: losses {losses} against one stage's "
+              f"{base[dtype]}: {bar_text}; by stage (PCI bus, step_wall_s, "
+              f"busy_s, bubble_s): "
+              f"{[(s['pci_bus_id'], round(s['step_wall_s'], 4), round(s['busy_s'], 4), round(s['bubble_s'], 4)) for s in stages]}",
+              flush=True)
+    return out, failed
+
+
+def mpmd_only(card_label) -> int:
+    """``chip_smoke.py --multi-card mpmd``: only the multi-card MPMD
+    cases (the kernels are built first).  Needs two cards or more."""
+    n_cards = torch.cuda.device_count()
+    print(f"[mpmd] torch.cuda.device_count()={n_cards}", flush=True)
+    if n_cards < 2:
+        raise RuntimeError("--multi-card mpmd needs two cards or more")
+    out, failed = mpmd_cases(n_cards)
+    _runtime_stop()
+    print("[mpmd] result " + json.dumps(out), flush=True)
+    if failed:
+        raise AssertionError("MPMD cases failed: " + "; ".join(failed))
+    return 0
+
+
 def _runtime_stop():
     """Shut the port's runtime down (its GCS, nodelet and workers) if this
     process started it."""
@@ -2865,12 +3269,18 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     libs = build.build_all()
-    print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    # the stage links' native channel (g++), which the workers then load
+    channel = build.build_channel()
+    print(f"[build] {sorted(libs)} and {channel.name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = ptxas_report(build.build_logs)
     sass_check(libs)
 
     label = f"{card} ({smi})"
+    if sys.argv[1:] == ["--multi-card", "mpmd"]:
+        rc = mpmd_only(label)
+        print(smi)
+        return rc
     if sys.argv[1:2] == ["--multi-card"] and len(sys.argv) <= 3:
         rc = multi_card_only(label, *sys.argv[2:])
         print(smi)
@@ -2907,6 +3317,10 @@ def main() -> int:
     # 6g. phase 6's run through TorchTrainer on a worker actor of the
     # port's runtime (the worker zeroes and reads its counters)
     paths["runtime"], runtime = runtime_train(label, training)
+    # 6m. the MPMD pipeline: two stage actors on the card, on the same
+    # runtime, which the phase shuts down (each worker zeroes and reads its
+    # counters)
+    paths["mpmd"], mpmd = mpmd_train(label)
     _runtime_stop()
 
     # 7. kernels line, card line, result line
@@ -2983,6 +3397,7 @@ def main() -> int:
     print("[ring] result " + json.dumps(ring), flush=True)
     print("[pipeline] result " + json.dumps(pipeline), flush=True)
     print("[runtime] result " + json.dumps(runtime), flush=True)
+    print("[mpmd] result " + json.dumps(mpmd), flush=True)
     print("[serve] result " + json.dumps(serving), flush=True)
     print("[serve-5s] result " + json.dumps(serving_5s), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))

@@ -16,6 +16,10 @@ beside it as ``lib<name>-<hash>.ptxas.txt``.
 TMA tensor maps are encoded on the host with ``cuTensorMapEncodeTiled``,
 which the kernels reach through ``cudaGetDriverEntryPoint``: the libraries
 link only the CUDA runtime, no ``-lcuda``.
+
+The shared-memory channel's native path (``_native/channel.cpp``) is built
+beside them with g++ (``build_channel``), under the same rules: keyed by a
+hash of the source and the flags, at first use, under a file lock.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CHANNEL_SRC = _PKG / "_native" / "channel.cpp"
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -44,7 +50,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # process built or found built, by kernel source name
 build_logs: Dict[str, str] = {}
 # the sources this process compiled (a process that found every library
-# built, as a train worker after the driver's build, compiles none)
+# built, as a train worker after the driver's build, compiles none);
+# the channel's library counts as "channel"
 compiled: List[str] = []
 
 
@@ -141,3 +148,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def channel_library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0" +
+                       CHANNEL_SRC.read_bytes())
+    return BUILD_DIR / f"libchannel-{h.hexdigest()[:16]}.so"
+
+
+def build_channel() -> Path:
+    """Compile ``_native/channel.cpp`` with g++ unless its library is
+    already built; raises when the build fails."""
+    out = channel_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "channel.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while we waited
+            return out
+        tmp = out.with_suffix(f".so.tmp{os.getpid()}")
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp),
+                               str(CHANNEL_SRC)],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed for channel.cpp (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+        compiled.append("channel")
+    return out

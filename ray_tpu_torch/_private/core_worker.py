@@ -3243,12 +3243,22 @@ class ActorTaskSubmitter:
                 for spec, holds in items:
                     self.cw.fail_task(spec, e, holds)
                 continue
-            except (rpc.ConnectionLost, ConnectionError):
-                # connection dropped in the attach window: requeue in order
-                # and retry (ensure_connected paces the loop via the GCS
-                # wait_alive round-trip)
+            except (rpc.ConnectionLost, ConnectionError) as e:
+                if self.cw._shut:
+                    # the GCS connection is closed for good: fail the calls
+                    for spec, holds in items:
+                        self.cw.fail_task(spec, RayActorError(
+                            self.actor_id, f"the runtime shut down before "
+                            f"the call reached its actor: {e}"), holds)
+                    continue
+                # connection dropped in the attach window, or the GCS
+                # connection is down: requeue in order and retry after a
+                # pause.  A closed connection raises without awaiting, so
+                # the pause is what lets the IO loop run anything else
+                # (the GCS reconnect, shutdown) meanwhile.
                 with self._queue_lock:
                     self._queue.extendleft(reversed(items))
+                await asyncio.sleep(_DRAIN_RETRY_S)
                 continue
             shipped = []
             for spec, holds in items:
@@ -3393,6 +3403,11 @@ class ActorTaskSubmitter:
                     return
                 if time.monotonic() > deadline:
                     raise RayActorError(self.actor_id, "timed out waiting for actor to start")
+
+
+# the pause between an actor submitter's retries while its connection, or
+# the GCS's, is down
+_DRAIN_RETRY_S = 0.05
 
 
 def _actor_death_msg(actor_id: ActorID, cause: str) -> str:

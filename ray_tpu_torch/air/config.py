@@ -5,7 +5,11 @@ Shared Train/Tune config dataclasses.
 Counterpart of the reference's AIR configs (reference: python/ray/air/config.py —
 ScalingConfig, RunConfig, FailureConfig, CheckpointConfig).  The port's
 deltas: ``use_gpu``/``gpus_per_worker``, a card a worker by default, and the
-gang strategy PACK: several GPU workers share a host, one card each.
+gang strategy PACK: several GPU workers share a host, one card each.  A
+share of a card (``0 < gpus_per_worker < 1``, the counterpart of a
+fractional ``tpus_per_worker``) is for MPMD stage gangs of one worker, which
+bring up no process group: ``TorchTrainer`` refuses it for a gang that
+does (``train/torch_config.check_card_share``).
 """
 
 from __future__ import annotations
@@ -35,11 +39,11 @@ class ScalingConfig:
     def __post_init__(self):
         if self.num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {self.num_workers}")
-        if self.use_gpu and (self.gpus_per_worker < 1 or
-                             self.gpus_per_worker % 1):
+        g = self.gpus_per_worker
+        if self.use_gpu and not (0 < g < 1 or (g >= 1 and g % 1 == 0)):
             raise ValueError(f"use_gpu: a worker owns whole cards "
-                             f"(gpus_per_worker >= 1), got "
-                             f"{self.gpus_per_worker}")
+                             f"(gpus_per_worker >= 1) or a share of one "
+                             f"(0 < gpus_per_worker < 1), got {g}")
         if self.placement_strategy is None:
             self.placement_strategy = "PACK"
 

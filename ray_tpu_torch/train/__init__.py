@@ -2,8 +2,8 @@
 
 The port of ``ray_tpu/train/__init__.py``: trainer -> worker group of
 gang-scheduled actors -> torch.distributed bring-up -> the user's SPMD loop
-with report()/checkpointing.  The MPMD pipeline (``ray_tpu/train/pipeline``)
-is not ported, and is not imported here.
+with report()/checkpointing.  The MPMD pipeline
+(``ray_tpu_torch.train.pipeline``) is imported on use, not here.
 """
 
 from ray_tpu_torch.air.config import (

@@ -11,7 +11,14 @@ tensors on its card.
 
 Worker placement -> ranks: world rank i = bundle i of the gang's placement
 group, and a worker's local rank is its place among the workers on its
-node.  The device follows ``ScalingConfig.use_gpu``.  The nodelet gives each
+node.  With ``pipeline_stages`` or ``dp_replicas`` (set by
+``TorchTrainer(pipeline_stages=N, mesh=(dp, 1))``) the worker group
+factors replica-major into dp × N contiguous gangs, each its own world:
+stages exchange channel frames and replicas sync over the host collective
+ring, never through torch.distributed, so MPMD gangs of one worker bring
+up no process group, and only they may take a share of a card
+(``ScalingConfig(gpus_per_worker=0.5)``).  The device follows
+``ScalingConfig.use_gpu``.  The nodelet gives each
 GPU worker's lease its own card (``CUDA_VISIBLE_DEVICES``); before CUDA
 starts, the gang's workers on a node all see the cards given to them, so
 that NCCL reaches its peers' cards, and each binds its own.  CUDA's current
@@ -70,10 +77,30 @@ class TorchConfig(BackendConfig):
     """
 
     init_timeout_s: float = DEFAULT_INIT_TIMEOUT_S
+    # MPMD pipeline layout (set by TorchTrainer(pipeline_stages=N)): the
+    # worker group splits into N contiguous stage gangs, each its own world
+    pipeline_stages: int = 1
+    # data-parallel replicas of the pipeline (TorchTrainer(mesh=(dp, 1))):
+    # the group factors replica-major into dp_replicas × pipeline_stages
+    # gangs; replicas sync gradients over the host collective ring
+    dp_replicas: int = 1
 
     @property
     def backend_cls(self):
         return _TorchBackend
+
+
+def check_card_share(gpus_per_worker: float, gang: int) -> None:
+    """A share of a card (0 < gpus_per_worker < 1) is for gangs of one
+    worker, which bring up no process group; a gang of more forms one, and
+    NCCL puts no two ranks on one card."""
+    if 0 < gpus_per_worker < 1 and gang > 1:
+        raise ValueError(
+            f"gpus_per_worker={gpus_per_worker:g}: a share of a card is for "
+            f"MPMD stage gangs of one worker (pipeline_stages or mesh "
+            f"with num_workers == dp * pipeline_stages); this layout puts "
+            f"{gang} workers in one torch.distributed gang, which needs a "
+            f"card for each")
 
 
 def _device_and_backend(resources_per_worker: Dict[str, float]
@@ -184,43 +211,61 @@ class _TorchBackend(Backend):
         import ray_tpu_torch
 
         n = len(worker_group)
-        # local ranks: each worker's place among those on its node
-        per_node = collections.defaultdict(list)
-        for rank, meta in enumerate(worker_group.metadata):
-            per_node[meta.node_id].append(rank)
-        port = worker_group.execute_single(0, _free_port)
-        addr = worker_group.metadata[0].node_ip
+        stages = max(1, backend_config.pipeline_stages)
+        dp = max(1, backend_config.dp_replicas)
+        # replica-major factoring: dp*stages independent worlds, each a
+        # contiguous rank block of `gang` workers
+        worlds = stages * dp
+        if n % worlds:
+            raise RuntimeError(
+                f"worker group of {n} not divisible by dp_replicas * "
+                f"pipeline_stages = {dp} * {stages}")
+        gang = n // worlds
         device_type, backend = _device_and_backend(
             worker_group.resources_per_worker)
-        cards: List[Optional[str]] = [None] * n
-        card: List[Optional[int]] = [None] * n
-        if device_type == "cuda":
-            given = worker_group.execute(_given_cards)
-            if not all(given):
-                raise RuntimeError(f"a GPU train worker was given no card: "
-                                   f"{given}")
-            cards, card = _shared_cards(list(per_node.values()), given)
+        given = (worker_group.execute(_given_cards)
+                 if device_type == "cuda" else [None] * n)
+        if device_type == "cuda" and not all(given):
+            raise RuntimeError(f"a GPU train worker was given no card: "
+                               f"{given}")
         refs = []
-        for rank, meta in enumerate(worker_group.metadata):
-            siblings = per_node[meta.node_id]
-            refs.append(worker_group.workers[rank].execute.remote(
-                _setup_torch_distributed, rank, n, siblings.index(rank),
-                len(siblings), addr, port, cards[rank], card[rank], backend,
-                backend_config.init_timeout_s))
+        for lo in range(0, n, gang):
+            ranks = range(lo, lo + gang)
+            # local ranks: each worker's place among its gang's on its node
+            per_node = collections.defaultdict(list)
+            for r in ranks:
+                per_node[worker_group.metadata[r].node_id].append(r - lo)
+            port = worker_group.execute_single(lo, _free_port)
+            addr = worker_group.metadata[lo].node_ip
+            cards: List[Optional[str]] = [None] * gang
+            card: List[Optional[int]] = [None] * gang
+            if device_type == "cuda":
+                cards, card = _shared_cards(list(per_node.values()),
+                                            given[lo:lo + gang])
+            for r in ranks:
+                siblings = per_node[worker_group.metadata[r].node_id]
+                refs.append(worker_group.workers[r].execute.remote(
+                    _setup_torch_distributed, r - lo, gang,
+                    siblings.index(r - lo), len(siblings), addr, port,
+                    cards[r - lo], card[r - lo], backend,
+                    backend_config.init_timeout_s))
         infos = ray_tpu_torch.get(refs,
                                   timeout=backend_config.init_timeout_s)
-        # one world, one backend, and on the cards a card of its own for
-        # every rank
-        if len({(i[1], i[2]) for i in infos}) != 1 or \
-                [i[0] for i in infos] != list(range(n)):
-            raise RuntimeError(f"torch.distributed came up inconsistent "
-                               f"across the gang: {infos}")
-        if device_type == "cuda":
-            owned = {(meta.node_id, info[4]) for meta, info in
-                     zip(worker_group.metadata, infos)}
-            if len(owned) != n:
-                raise RuntimeError(f"two ranks of the gang share a card: "
-                                   f"{infos}")
+        # within each gang one world, one backend, and on the cards a card
+        # of its own for every rank
+        for lo in range(0, n, gang):
+            got = infos[lo:lo + gang]
+            if len({(i[1], i[2]) for i in got}) != 1 or \
+                    [i[0] for i in got] != list(range(gang)):
+                raise RuntimeError(f"torch.distributed came up inconsistent "
+                                   f"across gang {lo // gang} (replica-major "
+                                   f"order): {got}")
+            if device_type == "cuda":
+                owned = {(meta.node_id, info[4]) for meta, info in
+                         zip(worker_group.metadata[lo:lo + gang], got)}
+                if len(owned) != gang:
+                    raise RuntimeError(f"two ranks of gang {lo // gang} "
+                                       f"share a card: {got}")
         self.device_info = infos
 
     def on_shutdown(self, worker_group: WorkerGroup,

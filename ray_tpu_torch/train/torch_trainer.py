@@ -29,8 +29,25 @@ Usage::
     )
     result = trainer.fit()
 
-The MPMD layout (``pipeline_stages``, ``num_microbatches``, ``mesh``) and
-``datasets=`` are not ported and raise.
+``pipeline_stages=N`` switches the worker layout from one SPMD gang to N
+MPMD stage gangs (``ray_tpu_torch.train.pipeline``, the port of
+``ray_tpu/train/jax_trainer.py:41-104``): workers split into N contiguous
+gangs, each gang its OWN world (no cross-stage process group — stages talk
+through channel frames), and the train loop sees ``_pipeline`` =
+``{"n_stages": N, "n_micro": M, "dp": dp, "tp": tp}`` in its config.
+``num_microbatches`` is the gradient-accumulation width of the 1F1B
+schedule, and ``mesh=(dp, 1)`` adds ``dp`` data-parallel replicas, each
+stage's replicas syncing gradients over the host collective ring;
+``num_workers`` must equal ``dp * pipeline_stages`` then.  Gangs of one
+worker bring up no process group, so their workers may share a card
+(``ScalingConfig(gpus_per_worker=0.5)``)::
+
+    trainer = TorchTrainer(
+        gpt2_pipeline_loop, train_loop_config={"steps": 10, ...},
+        scaling_config=ScalingConfig(num_workers=2, gpus_per_worker=0.5),
+        pipeline_stages=2, num_microbatches=4)
+
+``datasets=`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -40,12 +57,16 @@ from typing import Any, Callable, Dict, Optional
 from ray_tpu_torch.air.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train._checkpoint import Checkpoint
 from ray_tpu_torch.train.base_trainer import DataParallelTrainer
-from ray_tpu_torch.train.torch_config import TorchConfig
+from ray_tpu_torch.train.torch_config import (
+    TorchConfig,
+    check_card_share,
+)
 
 
 class TorchTrainer(DataParallelTrainer):
     """The same ``train_loop_per_worker`` on every worker of the gang, one
-    ``torch.distributed`` world over them."""
+    ``torch.distributed`` world over them, or one over each MPMD stage gang
+    (``pipeline_stages``, ``mesh``)."""
 
     _default_backend_config = TorchConfig()
 
@@ -59,22 +80,53 @@ class TorchTrainer(DataParallelTrainer):
                  pipeline_stages: int = 1,
                  num_microbatches: int = 1,
                  mesh: Optional[tuple] = None):
-        if pipeline_stages > 1 or num_microbatches > 1 or mesh is not None:
-            raise NotImplementedError(
-                "TorchTrainer: the MPMD layout (pipeline_stages, "
-                "num_microbatches, mesh) is not ported yet (ROADMAP A7's "
-                "MPMD part); the SPMD pipeline trains through "
-                "models.PipelinedPretrainer with MeshConfig(pp=...) inside "
-                "the loop")
+        import dataclasses
+
         if datasets:
             raise NotImplementedError(
                 "TorchTrainer: datasets= needs the Data library, which is "
                 "not ported; feed batches from the loop")
+        if pipeline_stages < 1:
+            raise ValueError(f"pipeline_stages must be >= 1, got "
+                             f"{pipeline_stages}")
+        if num_microbatches < 1:
+            raise ValueError(f"num_microbatches must be >= 1, got "
+                             f"{num_microbatches}")
+        if mesh is not None and (len(mesh) != 2 or min(mesh) < 1):
+            raise ValueError(f"mesh must be (dp, tp) with both >= 1, "
+                             f"got {mesh!r}")
+        dp, tp = (int(mesh[0]), int(mesh[1])) if mesh is not None else (1, 1)
+        torch_config = torch_config or TorchConfig()
+        scaling_config = scaling_config or ScalingConfig()
+        num_workers = scaling_config.num_workers
+        if pipeline_stages > 1 or dp > 1:
+            if dp > 1:
+                if num_workers != dp * pipeline_stages:
+                    raise ValueError(
+                        f"num_workers {num_workers} must equal dp * "
+                        f"pipeline_stages = {dp} * {pipeline_stages} (each "
+                        f"stage runs on its worker's card)")
+            elif num_workers % pipeline_stages:
+                raise ValueError(
+                    f"num_workers {num_workers} not divisible by "
+                    f"pipeline_stages {pipeline_stages}")
+            torch_config = dataclasses.replace(
+                torch_config, pipeline_stages=pipeline_stages,
+                dp_replicas=dp)
+        check_card_share(
+            scaling_config._worker_resources.get("GPU", 0.0),
+            num_workers // (torch_config.pipeline_stages
+                            * torch_config.dp_replicas))
+        if pipeline_stages > 1 or num_microbatches > 1 or dp > 1 or tp > 1:
+            train_loop_config = dict(train_loop_config or {})
+            train_loop_config["_pipeline"] = {
+                "n_stages": pipeline_stages, "n_micro": num_microbatches,
+                "dp": dp, "tp": tp}
         super().__init__(
             train_loop_per_worker,
             train_loop_config=train_loop_config,
-            backend_config=torch_config or TorchConfig(),
-            scaling_config=scaling_config or ScalingConfig(),
+            backend_config=torch_config,
+            scaling_config=scaling_config,
             run_config=run_config,
             resume_from_checkpoint=resume_from_checkpoint,
         )

@@ -15,7 +15,9 @@ nodelet.  Without a runtime: no module of the port imports JAX or the JAX
 package, the settings' prefix and session root are the port's own, and each
 plain copy of a JAX-package runtime module is its counterpart under the
 rename rule (``ray_tpu`` -> ``ray_tpu_torch``, ``RAY_TPU_`` ->
-``RAY_TPU_TORCH_``), with a first docstring line naming it.
+``RAY_TPU_TORCH_``), with a first docstring line naming it.  In a process
+of its own: a driver whose GCS is killed under a queued actor call keeps
+its IO loop answering, and its ``shutdown()`` ends the loop (C13).
 
 This file imports neither JAX nor the JAX package: a worker that runs one of
 its functions imports it.
@@ -60,7 +62,10 @@ train/_session.py train/_metrics.py tune/_single_trial.py
 accelerators/accelerator.py
 serve/__init__.py serve/config.py serve/_metrics.py serve/batching.py
 serve/multiplex.py serve/_streaming.py serve/handle.py serve/_replica.py
-serve/_proxy.py llm/admission.py""".split()
+serve/_proxy.py llm/admission.py
+util/collective/shm_channel.py util/collective/quantization.py
+util/collective/topology.py experimental/__init__.py experimental/channel.py
+dag/__init__.py dag/compiled.py train/pipeline/channels.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -234,7 +239,146 @@ def llm_deployment(engine_kwargs'''),
     dep = serve.deployment(
         LLMServer,"""),
 ]
+# C13: an actor call queued while the GCS connection is down retries after
+# a pause instead of at once, and fails once the runtime has shut down
+DRAIN_PACED = [
+    ("""            except (rpc.ConnectionLost, ConnectionError):
+                # connection dropped in the attach window: requeue in order
+                # and retry (ensure_connected paces the loop via the GCS
+                # wait_alive round-trip)
+                with self._queue_lock:
+                    self._queue.extendleft(reversed(items))
+                continue
+""", """            except (rpc.ConnectionLost, ConnectionError) as e:
+                if self.cw._shut:
+                    # the GCS connection is closed for good: fail the calls
+                    for spec, holds in items:
+                        self.cw.fail_task(spec, RayActorError(
+                            self.actor_id, f"the runtime shut down before "
+                            f"the call reached its actor: {e}"), holds)
+                    continue
+                # connection dropped in the attach window, or the GCS
+                # connection is down: requeue in order and retry after a
+                # pause.  A closed connection raises without awaiting, so
+                # the pause is what lets the IO loop run anything else
+                # (the GCS reconnect, shutdown) meanwhile.
+                with self._queue_lock:
+                    self._queue.extendleft(reversed(items))
+                await asyncio.sleep(_DRAIN_RETRY_S)
+                continue
+"""),
+    ("def _actor_death_msg(actor_id: ActorID, cause: str) -> str:",
+     """# the pause between an actor submitter's retries while its connection, or
+# the GCS's, is down
+_DRAIN_RETRY_S = 0.05
+
+
+def _actor_death_msg(actor_id: ActorID, cause: str) -> str:"""),
+]
+# the host ring takes torch tensors: a CUDA one goes to the host at the
+# op's entry and comes back on its device at the exit
+COLLECTIVE_TENSORS = [
+    ("import socket\nimport threading\n",
+     "import socket\nimport sys\nimport threading\n"),
+    ("""# ================================================================ public API
+def init_collective_group(""", '''# ================================================================ public API
+def _to_host(tensor):
+    """A torch tensor crosses the host ring as a numpy array: a CUDA tensor
+    is copied to the host at the op's entry (bf16, which numpy lacks, as
+    f32), and ``back`` returns a result to the tensor's device and dtype at
+    the exit.  Anything else passes as it is."""
+    torch = sys.modules.get("torch")
+    if torch is None or not isinstance(tensor, torch.Tensor):
+        return tensor, lambda out: out
+    device, dtype = tensor.device, tensor.dtype
+    host = tensor.detach().cpu()
+    if dtype == torch.bfloat16:
+        host = host.float()
+
+    def back(out):
+        return torch.from_numpy(np.array(out)).to(device=device, dtype=dtype)
+
+    return host.numpy(), back
+
+
+def init_collective_group('''),
+    ("""    contributions into the next quorum op (sum/mean only).\"\"\"
+    return _group(group_name).allreduce(tensor, op, timeout_s=timeout_s,
+                                        quant=quant, topology=topology,
+                                        quorum=quorum)
+""", """    contributions into the next quorum op (sum/mean only).\"\"\"
+    tensor, back = _to_host(tensor)
+    return back(_group(group_name).allreduce(tensor, op, timeout_s=timeout_s,
+                                             quant=quant, topology=topology,
+                                             quorum=quorum))
+"""),
+    ("""    return _group(group_name).allgather(tensor, timeout_s=timeout_s,
+                                        quant=quant)
+""", """    tensor, back = _to_host(tensor)
+    return [back(x) for x in _group(group_name).allgather(
+        tensor, timeout_s=timeout_s, quant=quant)]
+"""),
+    ("""    return _group(group_name).reducescatter(tensor, op, timeout_s=timeout_s,
+                                            quant=quant)
+""", """    tensor, back = _to_host(tensor)
+    return back(_group(group_name).reducescatter(tensor, op,
+                                                 timeout_s=timeout_s,
+                                                 quant=quant))
+"""),
+    ("""    return _group(group_name).broadcast(tensor, root=src_rank,
+                                        timeout_s=timeout_s, quant=quant,
+                                        topology=topology)
+""", """    tensor, back = _to_host(tensor)
+    return back(_group(group_name).broadcast(tensor, root=src_rank,
+                                             timeout_s=timeout_s, quant=quant,
+                                             topology=topology))
+"""),
+    ("""    _group(group_name).send(tensor, dst_rank, tag, timeout_s=timeout_s)
+""", """    _group(group_name).send(_to_host(tensor)[0], dst_rank, tag,
+                            timeout_s=timeout_s)
+"""),
+]
+# the stage hands DpGradSync its gradients as a dict of host arrays by
+# parameter name, flattened in key order instead of jax.tree_util's
+DP_SYNC_HOST = [
+    ("""       fp32-accumulated grad tree is final.
+    2. **launch** — :meth:`launch` flattens the tree in deterministic
+       ``jax.tree_util`` order, packs leaves greedily into buckets of at""",
+     """       fp32-accumulated grad tree is final.
+    2. **launch** — :meth:`launch` flattens the tree (a dict of host
+       arrays by parameter name) in its key order, packs leaves greedily
+       into buckets of at"""),
+    ("""        allreduces.  Returns the number of buckets launched.\"\"\"
+        import jax
+
+""", """        allreduces.  Returns the number of buckets launched.\"\"\"
+"""),
+    ("""        leaves, treedef = jax.tree_util.tree_flatten(grad_tree)
+        meta = [(l.shape, np.dtype(l.dtype)) for l in leaves]
+        flat32 = [np.asarray(jax.device_get(l)).astype(np.float32, copy=False)
+                  for l in leaves]
+""", """        treedef = list(grad_tree)
+        leaves = [grad_tree[k] for k in treedef]
+        meta = [(l.shape, np.dtype(l.dtype)) for l in leaves]
+        flat32 = [np.asarray(l).astype(np.float32, copy=False)
+                  for l in leaves]
+"""),
+    ("""        return the dp-mean grad tree in the original structure/dtypes.\"\"\"
+        import jax
+
+""", """        return the dp-mean grad tree in the original structure/dtypes.\"\"\"
+"""),
+    ("        return jax.tree_util.tree_unflatten(treedef, leaves)\n",
+     "        return dict(zip(treedef, leaves))\n"),
+]
 EDITED_COPIES = {
+    "util/collective/__init__.py": [
+        # xla.py's in-program collectives are torch.distributed calls here
+        ("quantization, topology, xla\n", "quantization, topology\n"),
+        ('"quantization", "topology", "xla",\n',
+         '"quantization", "topology",\n')],
+    "util/collective/collective.py": COLLECTIVE_TENSORS,
+    "train/pipeline/dp_sync.py": DP_SYNC_HOST,
     # the reference's docstring names its own history
     "llm/_metrics.py": [
         ("series ride, PR 1-3).", "series ride).")],
@@ -266,7 +410,7 @@ def temp_root() -> str:
     "_private/core_worker.py": [
         ("import random\nimport threading\n",
          "import random\nimport sys\nimport threading\n"),
-        CONFIG_IMPORT, TEMP_ROOT,
+        CONFIG_IMPORT, TEMP_ROOT, *DRAIN_PACED,
         ("    async def rpc_lease_reclaim(self, conn, msg):\n", '''    async def rpc_assign_cards(self, conn, msg):
         """The nodelet gives this worker its lease's cards: CUDA in this
         process sees only them.  CUDA reads the variable once, when it
@@ -608,3 +752,58 @@ def test_gcs_and_nodelet_run_the_ports_modules(runtime):
             libs = {line.split()[-1] for line in f if ".so" in line}
         assert [lib for lib in libs if re.search(
             r"libtorch|libc10|xla_extension|jaxlib", lib)] == []
+
+
+# C13: a driver whose GCS connection closed for good, with an actor call
+# queued for an actor it has not yet connected to.  Run in a process of its
+# own: the GCS is killed there.
+_GCS_GONE = """
+import asyncio, json, time
+import ray_tpu_torch as rt
+from ray_tpu_torch._private import worker as wm
+
+@rt.remote
+class Probe:
+    def ping(self):
+        return 1
+
+rt.init(num_cpus=2, num_gpus=0)
+core = wm.global_worker_core()
+late = Probe.remote()
+# alive at the GCS, while this driver has not connected to it yet
+core.gcs_call_sync("get_actor_info", {"actor_id": late._actor_id.binary(),
+                                      "wait_alive": True, "timeout": 60})
+wm._global_worker.node.kill_gcs()
+ref = late.ping.remote()
+time.sleep(0.5)
+t0 = time.monotonic()
+try:
+    core.io.run(asyncio.sleep(0), timeout=5)
+    loop_s = time.monotonic() - t0
+except Exception:
+    loop_s = None
+t0 = time.monotonic()
+rt.shutdown()
+print(json.dumps({"loop_s": loop_s, "shutdown_s": time.monotonic() - t0,
+                  "io_alive": core.io._thread.is_alive()}))
+"""
+
+
+def test_queued_actor_call_lets_the_io_loop_run_when_the_gcs_is_gone(
+        tmp_path):
+    """The submitter of a call queued while the GCS connection is closed
+    retries after a pause: the IO loop keeps running other callbacks (the
+    parent's copy spins in ``_drain`` without awaiting and answers
+    nothing), and ``shutdown()`` stops the loop within a few seconds."""
+    import json
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               RAY_TPU_TORCH_TMPDIR=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", _GCS_GONE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["loop_s"] is not None and got["loop_s"] < 1.0, got
+    assert got["shutdown_s"] < 5.0, got
+    assert got["io_alive"] is False, got

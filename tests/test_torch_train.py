@@ -204,11 +204,19 @@ def test_default_device_is_the_card():
     assert _device_and_backend(
         ScalingConfig(use_gpu=False)._worker_resources) == ("cpu", "gloo")
     assert TorchConfig().init_timeout_s == 300.0
-    for gpus in (0.5, 1.5, 0):  # a worker owns whole cards
+    for gpus in (1.5, 0):  # whole cards, or a share of one
         with pytest.raises(ValueError, match="whole cards"):
             ScalingConfig(gpus_per_worker=gpus)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TorchTrainer(_dp_train_loop, pipeline_stages=2, **_cpu())
+    # a share of a card only where no process group forms (MPMD gangs of
+    # one worker): one SPMD gang of two refuses it
+    with pytest.raises(ValueError, match="share of a card"):
+        TorchTrainer(_dp_train_loop, scaling_config=ScalingConfig(
+            num_workers=2, gpus_per_worker=0.5))
+    # the MPMD layout: two stage gangs of one worker, each its own world
+    mpmd = TorchTrainer(_dp_train_loop, pipeline_stages=2, **_cpu())
+    assert mpmd.backend_config.pipeline_stages == 2
+    assert mpmd.train_loop_config["_pipeline"] == {
+        "n_stages": 2, "n_micro": 1, "dp": 1, "tp": 1}
     with pytest.raises(NotImplementedError, match="Data library"):
         TorchTrainer(_dp_train_loop, datasets={"train": [1]}, **_cpu())
 
