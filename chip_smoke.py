@@ -149,6 +149,32 @@ Phases, each fatal on failure:
      one-card step on a card of its own; they run in phase 6c where the
      cards are, with ``--multi-card`` (``--multi-card trainer``: only
      they), and on CPU worker actors (gloo) with ``--gloo-gang``;
+  6r. RL (after 6m, on a runtime of its own): (a) PPOConfig at
+     tests/test_rllib.py:75-97's config with one learner actor on the card
+     must reach a return of 350 within 200,000 env steps, the learner
+     reporting cuda:0, its runners never starting CUDA and no runner or
+     learner loading jax, optax or ray_tpu (iterations, env steps/s, an
+     iteration's median split into the update's time by CUDA events and
+     a runner's fragment); (b) one TorchLearner update on the card against
+     the same update on the CPU (same parameters, that batch, the same
+     permutations, TF32 off): GAE within 1e-5, the first minibatch's
+     gradient 1e-5 (norm), the stats 1e-4, relative, and five
+     PodracerLearner V-trace updates on the card against the CPU's, the
+     stats 1e-4; (c) IMPALA's relaunch path (tests/test_rllib.py:160-189's
+     config at seeds 0, 1 and 2, side by side, learners in the driver on
+     the card): at least one run must reach 350 within 400,000 env steps
+     (one async run misses it by chance), then Sebulba: an
+     inference pool and two learners sharing card 0 at
+     num_gpus_per_learner=0.5 for three iterations, the replicas bitwise
+     equal after a flush, zero local forwards, the pool batching two
+     runners; (d) llm_policy_pool with phase 5s's GPT-2-small engine and
+     the prefix cache answers four runner threads for four steps each
+     (the episode so far, greedy, 8 tokens): tokens against phase 5's
+     engine in this process, flash_fwd launches in the engine's process
+     equal to its attention calls, no backward launch, no page leaked,
+     prefix-cache hits at every step after the first; the driver's
+     counters, zeroed before (a), read 0 after (c); one runner's env
+     steps/s at one torch thread and at torch's default;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -3232,6 +3258,548 @@ def mpmd_only(card_label) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 6r
+# RL: PPO and IMPALA on CartPole with their learners on the card, the
+# Sebulba gang sharing it, and a GPT-2-small policy answering runners
+# through Serve (tests/test_rllib.py:75-97 and :160-189's configs)
+RL_PPO_STEPS = 200_000
+RL_IMPALA_STEPS = 400_000
+# (c): the relaunch path's runs, one a seed, side by side
+RL_IMPALA_SEEDS = (0, 1, 2)
+RL_RETURN = 350.0
+RL_FOREIGN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+# the LLM policy pool: runner threads, steps an episode, tokens a step
+RL_POOL_RUNNERS, RL_POOL_STEPS, RL_POOL_TOKENS = 4, 4, 8
+# (b): the card's update against the CPU's, f32 with TF32 off
+RL_GRAD_RTOL, RL_STATS_RTOL, RL_GAE_RTOL = 1e-5, 1e-4, 1e-5
+# (b) for IMPALA: V-trace updates of the card's learner against the CPU's
+RL_VTRACE_UPDATES = 5
+# what PERF.md predicted before the phase first ran on the card
+RL_PREDICTION = (
+    "PPO 350 at 80k-160k env steps, 5,000-12,000 env steps/s, update "
+    "median 40-120 ms; the card against the CPU: GAE 1e-6, gradient 1e-6, "
+    "stats 1e-5; IMPALA 350 at 150k-350k env steps, 15,000-30,000 env "
+    "steps/s; Sebulba bitwise, 0 local forwards, occupancy 2; the pool's "
+    "engine up in 25-35 s, a decision 0.10-0.25 s at the median, 100-300 "
+    "tokens/s, 16 of 16 prompts' tokens equal; the phase 90-150 s")
+
+
+def _rl_foreign(facts) -> list:
+    return [m for m in facts["packages"] if m in RL_FOREIGN]
+
+
+def _ppo_config(device=None):
+    from ray_tpu_torch.rllib import PPOConfig
+
+    config = (PPOConfig().environment("CartPole-v1")
+              .env_runners(num_env_runners=2, num_envs_per_env_runner=16,
+                           rollout_fragment_length=64)
+              .training(vf_clip_param=100.0, lr=1e-3, entropy_coeff=0.01)
+              .learners(num_learners=1)
+              .debugging(seed=0))
+    if device is not None:
+        config.learners(device=device)
+    return config
+
+
+def _check_runners(debug, label):
+    """Every runner process: CUDA never up, no JAX-package module."""
+    for d in debug:
+        if d["cuda_initialized"] or _rl_foreign(d):
+            raise AssertionError(f"{label}: a runner started CUDA or "
+                                 f"loaded {_rl_foreign(d)}: {d}")
+
+
+def rl_ppo(card_label) -> dict:
+    """(a) PPO at the reference's tuned example, its learner actor on the
+    card: 350 within RL_PPO_STEPS env steps."""
+    import ray_tpu_torch as rt
+
+    algo = _ppo_config().build()
+    try:
+        t0 = time.perf_counter()
+        best, result, iters, walls = -np.inf, None, 0, []
+        while True:
+            t1 = time.perf_counter()
+            result = algo.train()
+            walls.append(time.perf_counter() - t1)
+            iters += 1
+            best = max(best, result["episode_return_mean"])
+            if result["episode_return_mean"] >= RL_RETURN or \
+                    result["num_env_steps_sampled_lifetime"] >= RL_PPO_STEPS:
+                break
+        wall = time.perf_counter() - t0
+        steps = result["num_env_steps_sampled_lifetime"]
+        learner = algo.learner_group.actors[0]
+        facts = rt.get(learner.process_facts.remote(), timeout=60)
+        update_ms = rt.get(learner.update_times.remote(), timeout=60)
+        debug = rt.get([r.get_debug.remote() for r in algo._runner_actors],
+                       timeout=60)
+    finally:
+        algo.stop()
+    if result["episode_return_mean"] < RL_RETURN:
+        raise AssertionError(f"PPO did not reach {RL_RETURN} within {steps} "
+                             f"env steps (best {best})")
+    if facts["device"] != "cuda:0" or _rl_foreign(facts):
+        raise AssertionError(f"the PPO learner ran on {facts['device']} and "
+                             f"loaded {_rl_foreign(facts)}")
+    _check_runners(debug, "PPO")
+    # a fragment's host time in each runner, its weights' load included
+    sample_ms = 1e3 * max(d["sample_s"] / d["fragments"] for d in debug)
+    out = {"iterations": iters, "env_steps": steps,
+           "return_mean": result["episode_return_mean"], "wall_s": wall,
+           "env_steps_per_s": steps / wall,
+           "iteration_ms_median": 1e3 * float(np.median(walls)),
+           "update_ms_median": float(np.median(update_ms)),
+           "update_ms_min": float(np.min(update_ms)),
+           "runner_sample_ms": sample_ms,
+           "runner_threads": [d["torch_threads"] for d in debug]}
+    print(f"[rl] (a) PPO CartPole-v1, 2 runner actors x 16 envs x 64 steps, "
+          f"learner actor on {facts['device']}: return "
+          f"{out['return_mean']:.2f} >= {RL_RETURN} after {iters} "
+          f"iterations, {steps} env steps (bar {RL_PPO_STEPS}), "
+          f"{out['env_steps_per_s']:.1f} env steps/s; an iteration "
+          f"{out['iteration_ms_median']:.3f} ms at the median: the update "
+          f"{out['update_ms_median']:.3f} ms (CUDA events, min "
+          f"{out['update_ms_min']:.3f}), a runner's fragment "
+          f"{sample_ms:.3f} ms (host), the rest the weights' and the "
+          f"batch's trips and the actor calls; runners: CUDA never "
+          f"initialised, "
+          f"torch threads {out['runner_threads']}, no jax/ray_tpu module "
+          f"on {card_label}", flush=True)
+    return out
+
+
+def _rel(a, b) -> float:
+    return float(abs(a - b) / max(abs(b), 1e-30))
+
+
+def rl_learner_parity() -> dict:
+    """(b) One TorchLearner update on the card against the same update on
+    the CPU: the same initial parameters, (a)'s batch from two local
+    runners, the same permutations."""
+    from ray_tpu_torch.rllib.algorithms.algorithm import build_module_spec
+    from ray_tpu_torch.rllib.core.learner import TorchLearner
+    from ray_tpu_torch.rllib.env.env_runner import EnvRunner
+
+    config = _ppo_config()
+    spec = build_module_spec(config)
+    card = TorchLearner(spec, config.training_params, seed=0)
+    host = TorchLearner(spec, config.training_params, seed=0, device="cpu")
+    weights = host.get_weights()
+    frags = []
+    for i in range(2):
+        runner = EnvRunner("CartPole-v1", 16, 64, spec, seed=1000 * (i + 1))
+        runner.set_weights(weights)
+        frags.append(runner.sample())
+    batch = {k: np.concatenate([f[k] for f in frags], axis=1)
+             for k in frags[0]}
+    perms = host.draw_permutations(batch["rewards"].size)
+    adv_c, grad_c = card.gae_and_grads(batch, perms[0, 0])
+    adv_h, grad_h = host.gae_and_grads(batch, perms[0, 0])
+    gae_err = float((adv_c.cpu() - adv_h).abs().max() / adv_h.abs().max())
+    grad_err = float((grad_c.cpu() - grad_h).norm() / grad_h.norm())
+    stats_c = card.update(batch, perms=perms)
+    stats_h = host.update(batch, perms=perms)
+    stats_err = {k: _rel(stats_c[k], stats_h[k]) for k in stats_h}
+    param_err = max(float((card.get_weights()[k] - v).norm() / v.norm())
+                    for k, v in host.get_weights().items() if v.norm() > 0)
+    print(f"[rl] (b) TorchLearner on the card against the CPU, batch "
+          f"{batch['rewards'].shape}, {tuple(perms.shape)} permutations, "
+          f"TF32 off: GAE advantages max rel {gae_err:.3e} (bar "
+          f"{RL_GAE_RTOL}); first minibatch gradient rel norm "
+          f"{grad_err:.3e} (bar {RL_GRAD_RTOL}); stats rel "
+          f"{ {k: float(f'{v:.3e}') for k, v in stats_err.items()} } (bar "
+          f"{RL_STATS_RTOL}); parameters after the update, largest rel "
+          f"norm {param_err:.3e}", flush=True)
+    if gae_err > RL_GAE_RTOL or grad_err > RL_GRAD_RTOL or \
+            max(stats_err.values()) > RL_STATS_RTOL:
+        raise AssertionError(f"the card's update is not the CPU's: GAE "
+                             f"{gae_err}, gradient {grad_err}, stats "
+                             f"{stats_err}")
+    return {"gae_rel": gae_err, "grad_rel_norm": grad_err,
+            "stats_rel": stats_err, "param_rel_norm": param_err,
+            "vtrace": _vtrace_learner_parity()}
+
+
+def _vtrace_learner_parity() -> dict:
+    """(b) for IMPALA: RL_VTRACE_UPDATES PodracerLearner updates on the
+    card against the same updates on the CPU, each on a fragment that a
+    local runner sampled with the CPU learner's weights."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+    from ray_tpu_torch.rllib.algorithms.algorithm import build_module_spec
+    from ray_tpu_torch.rllib.env.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.podracer import PodracerLearner
+
+    config = IMPALAConfig().environment("CartPole-v1").env_runners(
+        num_envs_per_env_runner=16, rollout_fragment_length=64).training(
+        lr=7e-4, entropy_coeff=0.01)
+    spec = build_module_spec(config)
+    card = PodracerLearner(spec, config.training_params, seed=0)
+    host = PodracerLearner(spec, config.training_params, seed=0,
+                           device="cpu")
+    runner = EnvRunner("CartPole-v1", 16, 64, spec, seed=1000)
+    stats_err = 0.0
+    for _ in range(RL_VTRACE_UPDATES):
+        runner.set_weights(host.get_weights())
+        fragment = runner.sample()
+        stats_c, stats_h = card.update(fragment), host.update(fragment)
+        stats_err = max(stats_err, *(_rel(stats_c[k], stats_h[k])
+                                     for k in stats_h))
+    param_err = max(float((card.get_weights()[k] - v).norm() / v.norm())
+                    for k, v in host.get_weights().items() if v.norm() > 0)
+    print(f"[rl] (b) PodracerLearner on {card.device} against the CPU, "
+          f"{RL_VTRACE_UPDATES} V-trace updates on (64, 16) fragments, TF32 "
+          f"off: stats largest rel {stats_err:.3e} (bar {RL_STATS_RTOL}); "
+          f"parameters after them, largest rel norm {param_err:.3e}",
+          flush=True)
+    if stats_err > RL_STATS_RTOL:
+        raise AssertionError(f"the card's V-trace update is not the CPU's: "
+                             f"stats {stats_err}")
+    return {"stats_rel": stats_err, "param_rel_norm": param_err}
+
+
+def _impala_relaunch_runs(card_label, seeds=RL_IMPALA_SEEDS,
+                          device=None) -> dict:
+    """(c)'s relaunch path: tests/test_rllib.py:160-189's config at each
+    of ``seeds``, the runs side by side (the driver takes one ``train()``
+    of each in turn), every learner in the driver on the card (or on
+    ``device``; rl_impala_runs.py repeats this).  An async run's return
+    depends on the order its fragments land in, so one run meets the bar
+    or misses it by chance; rl_impala asks that at least one of the runs
+    reach RL_RETURN within RL_IMPALA_STEPS."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    runs = [{"seed": seed, "iterations": 0, "best_return": -np.inf,
+             "env_steps": 0, "reached_at": None, "wall_s": None}
+            for seed in seeds]
+    algos, devices, debug = [], [], []
+    try:
+        for seed in seeds:
+            algos.append(
+                IMPALAConfig().environment("CartPole-v1")
+                .env_runners(num_env_runners=2, num_envs_per_env_runner=16,
+                             rollout_fragment_length=64)
+                .training(lr=7e-4, entropy_coeff=0.01)
+                .podracer(async_stream=False)
+                .learners(device=device).debugging(seed=seed).build())
+        t0 = time.perf_counter()
+        while any(r["wall_s"] is None for r in runs):
+            for algo, run in zip(algos, runs):
+                if run["wall_s"] is not None:
+                    continue
+                result = algo.train()
+                run["iterations"] += 1
+                run["env_steps"] = result["num_env_steps_sampled_lifetime"]
+                run["best_return"] = max(run["best_return"],
+                                         result["episode_return_mean"])
+                if run["best_return"] >= RL_RETURN:
+                    run["reached_at"] = run["env_steps"]
+                if run["reached_at"] is not None or \
+                        run["env_steps"] >= RL_IMPALA_STEPS:
+                    run["wall_s"] = time.perf_counter() - t0
+                    run["env_steps_per_s"] = run["env_steps"] / run["wall_s"]
+                    # a finished run's runners stop, freeing their cores
+                    devices.append(str(algo.learner.device))
+                    debug += rt.get([r.get_debug.remote()
+                                     for r in algo._runners], timeout=60)
+                    algo.stop()
+        wall = time.perf_counter() - t0
+    finally:
+        for algo in algos:
+            algo.stop()
+    reached = [r for r in runs if r["reached_at"] is not None]
+    print(f"[rl] (c) IMPALA relaunch path, 2 runner actors x 16 envs x 64 "
+          f"steps, learners in the driver on {devices}, seeds "
+          f"{list(seeds)} side by side in {wall:.3f} s: "
+          + "; ".join(f"seed {r['seed']} best return "
+                      f"{r['best_return']:.2f} after {r['iterations']} "
+                      f"iterations, {r['env_steps']} env steps, "
+                      f"{r['env_steps_per_s']:.1f} env steps/s"
+                      for r in runs)
+          + f"; {len(reached)} of {len(runs)} reached {RL_RETURN} within "
+          f"{RL_IMPALA_STEPS} env steps on {card_label}", flush=True)
+    if set(devices) != {device or "cuda:0"}:
+        raise AssertionError(f"the IMPALA learners ran on {devices}")
+    _check_runners(debug, "IMPALA")
+    return {"runs": runs, "wall_s": wall, "reached": len(reached)}
+
+
+def rl_impala(card_label) -> dict:
+    """(c) IMPALA: the relaunch path with its learners on the card, then
+    Sebulba streaming: an inference pool, two learners sharing card 0 at
+    num_gpus_per_learner=0.5, three iterations."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import IMPALAConfig
+
+    relaunch = _impala_relaunch_runs(card_label)
+    if not relaunch["reached"]:
+        raise AssertionError(f"no IMPALA run reached {RL_RETURN} within "
+                             f"{RL_IMPALA_STEPS} env steps: "
+                             f"{relaunch['runs']}")
+
+    config = (IMPALAConfig().environment("CartPole-v1")
+              .env_runners(num_env_runners=2, num_envs_per_env_runner=16,
+                           rollout_fragment_length=64)
+              .learners(num_learners=2, num_gpus_per_learner=0.5)
+              .podracer(inference_mode="pool", fragments_per_call=4,
+                        batch_window_s=0.01)
+              .debugging(seed=0))
+    algo = config.build()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            result = algo.train()
+        wall = time.perf_counter() - t0
+        algo.learner.flush()
+        gang = algo.learner.learners
+        facts = rt.get([ln.process_facts.remote() for ln in gang],
+                       timeout=60)
+        w0, w1 = (algo.learner.get_weights(r) for r in range(2))
+        debug = rt.get([r.get_debug.remote() for r in algo._runners],
+                       timeout=60)
+        pool = rt.get(algo._pool.get_stats.remote(), timeout=60)
+    finally:
+        algo.stop()
+    same = sorted(w0) == sorted(w1) and all(torch.equal(w0[k], w1[k])
+                                            for k in w0)
+    if [f["device"] for f in facts] != ["cuda:0", "cuda:0"] or not same:
+        raise AssertionError(f"the Sebulba gang: devices "
+                             f"{[f['device'] for f in facts]}, replicas "
+                             f"bitwise equal {same}")
+    if any(d["local_forwards"] for d in debug) or \
+            pool["max_batch_occupancy"] < 2:
+        raise AssertionError(f"Sebulba: runners' local forwards "
+                             f"{[d['local_forwards'] for d in debug]}, pool "
+                             f"{pool}")
+    _check_runners(debug + [pool["process"]], "Sebulba")
+    sebulba = {"env_steps": result["num_env_steps_sampled_lifetime"],
+               "policy_version": result["policy_version"], "wall_s": wall,
+               "pool_iterations": pool["iterations"],
+               "pool_requests": pool["requests"],
+               "max_batch_occupancy": pool["max_batch_occupancy"]}
+    print(f"[rl] (c) IMPALA Sebulba: inference pool, 2 learners on "
+          f"{[f['device'] for f in facts]} at num_gpus_per_learner=0.5, 3 "
+          f"iterations: {sebulba['env_steps']} env steps, policy version "
+          f"{sebulba['policy_version']}; replicas bitwise equal after "
+          f"flush; runners' local forwards "
+          f"{[d['local_forwards'] for d in debug]}; pool {pool['requests']} "
+          f"requests in {pool['iterations']} forwards, max occupancy "
+          f"{pool['max_batch_occupancy']}; on {card_label}", flush=True)
+    return {"relaunch": relaunch, "sebulba": sebulba}
+
+
+def _pool_round(handle, prompts):
+    """One step of every runner at once, a thread each: the replies'
+    tokens and each decision's latency on this process's clock."""
+    import threading
+
+    out = [None] * len(prompts)
+    errors = []
+
+    def act(i):
+        try:
+            t0 = time.perf_counter()
+            res = handle.remote({"prompt_ids": prompts[i],
+                                 "max_tokens": RL_POOL_TOKENS}).result(120)
+            out[i] = (res["tokens"], time.perf_counter() - t0)
+        except Exception as err:
+            errors.append((i, repr(err)[-800:]))
+
+    threads = [threading.Thread(target=act, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(180)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"policy pool requests failed: {errors}")
+    return out
+
+
+def rl_llm_pool(card_label) -> tuple:
+    """(d) ``llm_policy_pool`` with phase 5s's GPT-2-small engine kwargs and
+    the prefix cache: RL_POOL_RUNNERS runners take RL_POOL_STEPS steps in
+    lockstep, each sending the episode so far (the last prompt, its reply
+    and a seeded observation string); the tokens against phase 5's
+    in-process engine, the launches in the engine's process."""
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch.llm.engine import encode_text
+    from ray_tpu_torch.rllib.podracer import llm_policy_pool
+
+    cfg, _, _, _, engine = serving_workload()
+    kwargs = dict(model_config=cfg, device="cuda", seed=0, page_size=16,
+                  num_pages=512, max_batch_tokens=512,
+                  prefill_chunk_tokens=256, engine_name="smoke-rl-pool",
+                  enable_prefix_cache=True)
+    rng = np.random.default_rng(11)
+
+    def observation():
+        x = rng.uniform(-0.2, 0.2, 4)
+        return encode_text(" obs " + ",".join(f"{v:+.3f}" for v in x)
+                           + " act:", cfg.vocab_size)
+
+    t0 = time.perf_counter()
+    handle = llm_policy_pool(kwargs, name="smoke-rl-llm")
+    stats = handle.options(method_name="engine_stats").remote().result(120)
+    start_s = time.perf_counter() - t0
+    before = stats["process"]["kernel_launches"]
+    if any(before.values()):
+        raise AssertionError(f"the engine launched kernels before the "
+                             f"runners: {before}")
+    prompts = [encode_text(f"episode {i}:", cfg.vocab_size) + observation()
+               for i in range(RL_POOL_RUNNERS)]
+    sent, latencies, hits = [], [], []
+    t0 = time.perf_counter()
+    for step in range(RL_POOL_STEPS):
+        replies = _pool_round(handle, prompts)
+        sent += [(p, toks) for p, (toks, _) in zip(prompts, replies)]
+        latencies += [s for _, s in replies]
+        hits.append(handle.options(method_name="engine_stats").remote()
+                    .result(60)["prefix_hit_tokens"])
+        prompts = [p + toks + observation()
+                   for p, (toks, _) in zip(prompts, replies)]
+    wall = time.perf_counter() - t0
+    stats = handle.options(method_name="engine_stats").remote().result(60)
+    rt_serve.delete("smoke-rl-llm")
+    proc = stats["process"]
+    launches, calls = proc["kernel_launches"], proc["attention_calls"]
+    if not (launches["flash_fwd"] > 0 and launches["flash_fwd"] == calls):
+        raise AssertionError(f"pool engine flash_fwd launches {launches} != "
+                             f"attention calls {calls}")
+    if any(launches[key] for key in BWD_KERNELS):
+        raise AssertionError(f"the pool engine launched backward kernels: "
+                             f"{launches}")
+    if stats["kv_pages_free"] + stats["prefix_cache_pages"] != \
+            stats["kv_pages_total"]:
+        raise AssertionError(f"the pool engine leaked pages: {stats}")
+    # every step after the first re-sends its episode: the cache must hit
+    grew = [b > a for a, b in zip(hits, hits[1:])]
+    if not all(grew):
+        raise AssertionError(f"prefix-cache hit tokens by step {hits}")
+    if proc["device"] != "cuda:0" or _rl_foreign(proc):
+        raise AssertionError(f"the pool engine ran on {proc['device']} and "
+                             f"loaded {_rl_foreign(proc)}")
+    # the same prompts through phase 5's engine in this process
+    core = engine()
+    same = 0
+    for i, (prompt, got) in enumerate(sent):
+        want = core.generate(prompt, {"max_tokens": RL_POOL_TOKENS})["tokens"]
+        if got == want:
+            same += 1
+            continue
+        pos = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        gap = _top2_gap(core, prompt + want[:pos])
+        print(f"[rl] (d) prompt {i} differs from phase 5's engine at token "
+              f"{pos}: {got[pos]} against {want[pos]}; top-two logit gap "
+              f"{gap:.3e} (bar {NEAR_TIE:.0e})", flush=True)
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"prompt {i} differs at token {pos} with a "
+                                 f"logit gap of {gap:.3e}")
+    del core
+    gen = RL_POOL_RUNNERS * RL_POOL_STEPS * RL_POOL_TOKENS
+    out = {"start_s": start_s, "wall_s": wall, "tokens_per_s": gen / wall,
+           "decision_s_median": float(np.median(latencies)),
+           "decision_s_max": float(np.max(latencies)),
+           "prefix_hit_tokens_by_step": hits, "identical": same,
+           "prompts": len(sent), "longest_prompt": max(len(p) for p, _ in sent),
+           "attention_calls": calls, "pci_bus_id": proc["pci_bus_id"]}
+    print(f"[rl] (d) llm_policy_pool: GPT-2-small engine actor on "
+          f"{proc['device']} (PCI {proc['pci_bus_id']}) started in "
+          f"{start_s:.3f} s; {RL_POOL_RUNNERS} runners x {RL_POOL_STEPS} "
+          f"steps, greedy {RL_POOL_TOKENS} tokens a step, prompts up to "
+          f"{out['longest_prompt']} tokens: decision median "
+          f"{out['decision_s_median']:.4f} s (max "
+          f"{out['decision_s_max']:.4f}), {out['tokens_per_s']:.2f} tokens/s;"
+          f" tokens identical to phase 5's engine for {same} of {len(sent)} "
+          f"prompts; engine launches {launches} (attention calls {calls}); "
+          f"prefix-cache hit tokens after each step {hits}; pages free "
+          f"{stats['kv_pages_free']} + cached {stats['prefix_cache_pages']} "
+          f"of {stats['kv_pages_total']} on {card_label}", flush=True)
+    return launches, out
+
+
+def rl_runner_threads() -> dict:
+    """A runner's env steps/s at (a)'s shape (16 envs x 64 steps) in this
+    process, at one torch thread (what a runner actor sets) and at torch's
+    default here."""
+    from ray_tpu_torch.rllib.algorithms.algorithm import build_module_spec
+    from ray_tpu_torch.rllib.env.env_runner import EnvRunner
+
+    spec = build_module_spec(_ppo_config())
+    default = torch.get_num_threads()
+    out = {}
+    try:
+        for threads in (1, default):
+            torch.set_num_threads(threads)
+            runner = EnvRunner("CartPole-v1", 16, 64, spec, seed=0)
+            runner.set_weights(runner.module.state())
+            runner.sample()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                runner.sample()
+            out[threads] = 5 * 16 * 64 / (time.perf_counter() - t0)
+    finally:
+        torch.set_num_threads(default)
+    print(f"[rl] one runner, 16 envs x 64 steps, env steps/s by torch "
+          f"threads: {out} (a runner actor sets 1)", flush=True)
+    return {str(k): v for k, v in out.items()}
+
+
+def rl_train(card_label) -> tuple:
+    """Phase 6r: PPO and IMPALA learn CartPole with their learners on the
+    card, and the LLM policy pool answers runners through Serve on the
+    flash kernel.  On its own runtime, which it shuts down; every part
+    runs and the phase fails at the end if any failed."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private import worker as worker_mod
+
+    t_phase = time.perf_counter()
+    print(f"[rl] prediction (PERF.md §6): {RL_PREDICTION}", flush=True)
+    out, failed = {}, []
+    launches = {"rl": None, "rl_llm_pool": None}
+    out["runner_threads"] = rl_runner_threads()
+    rt.init(ignore_reinit_error=True)
+    session_dir = worker_mod.global_worker().node.session_dir
+    try:
+        # the MLP paths: PPO's and IMPALA's learners run no attention
+        _zero_counts()
+        for part, fn in (("ppo", lambda: rl_ppo(card_label)),
+                         ("learner_parity", rl_learner_parity),
+                         ("impala", lambda: rl_impala(card_label))):
+            try:
+                out[part] = fn()
+            except Exception as err:
+                failed.append(f"{part}: {err!r}")
+                print(f"[rl] {part}: FAILED: {err!r}", flush=True)
+        launches["rl"] = _read_counts()
+        try:
+            launches["rl_llm_pool"], out["llm_pool"] = rl_llm_pool(card_label)
+        except Exception as err:
+            failed.append(f"llm_pool: {err!r}")
+            print(f"[rl] llm_pool: FAILED: {err!r}", flush=True)
+    finally:
+        rt_serve.shutdown()
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (left := _port_processes(session_dir)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if left:
+        failed.append(f"port processes left after shutdown: {left}")
+    if any(launches["rl"].values()):
+        failed.append(f"the RL learners' paths launched attention kernels: "
+                      f"{launches['rl']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[rl] the phase {out['phase_s']:.3f} s on {card_label}; no port "
+          f"process left: {not left}", flush=True)
+    if failed:
+        raise AssertionError("phase 6r failed: " + "; ".join(failed))
+    return launches, out
+
+
 def _runtime_stop():
     """Shut the port's runtime down (its GCS, nodelet and workers) if this
     process started it."""
@@ -3321,6 +3889,11 @@ def main() -> int:
     # runtime, which the phase shuts down (each worker zeroes and reads its
     # counters)
     paths["mpmd"], mpmd = mpmd_train(label)
+    # 6r. RL: PPO and IMPALA on CartPole with their learners on the card,
+    # and the LLM policy pool (its engine actor zeroes nothing: its counts
+    # must read 0 before the runners)
+    rl_paths, rl = rl_train(label)
+    paths.update(rl_paths)
     _runtime_stop()
 
     # 7. kernels line, card line, result line
@@ -3398,6 +3971,7 @@ def main() -> int:
     print("[pipeline] result " + json.dumps(pipeline), flush=True)
     print("[runtime] result " + json.dumps(runtime), flush=True)
     print("[mpmd] result " + json.dumps(mpmd), flush=True)
+    print("[rl] result " + json.dumps(rl), flush=True)
     print("[serve] result " + json.dumps(serving), flush=True)
     print("[serve-5s] result " + json.dumps(serving_5s), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))

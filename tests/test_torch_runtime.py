@@ -65,7 +65,11 @@ serve/multiplex.py serve/_streaming.py serve/handle.py serve/_replica.py
 serve/_proxy.py llm/admission.py
 util/collective/shm_channel.py util/collective/quantization.py
 util/collective/topology.py experimental/__init__.py experimental/channel.py
-dag/__init__.py dag/compiled.py train/pipeline/channels.py""".split()
+dag/__init__.py dag/compiled.py train/pipeline/channels.py
+rllib/_metrics.py rllib/algorithms/__init__.py rllib/core/__init__.py
+rllib/env/__init__.py rllib/env/cartpole.py rllib/env/pendulum.py
+rllib/podracer/__init__.py rllib/podracer/weights.py
+rllib/podracer/stream.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -371,6 +375,86 @@ DP_SYNC_HOST = [
     ("        return jax.tree_util.tree_unflatten(treedef, leaves)\n",
      "        return dict(zip(treedef, leaves))\n"),
 ]
+# RL (rllib/): learners on the card take device= and num_gpus_per_learner=
+# in place of platform=; the exports leave out what waits for later slices
+RLLIB_LEARNERS = [
+    ("        self.learner_platform: Optional[str] = None\n",
+     "        self.learner_device: Optional[str] = None\n"
+     "        self.num_gpus_per_learner: float = 1\n"),
+    ("""    def learners(self, *, num_learners: Optional[int] = None,
+                 platform: Optional[str] = None) -> "AlgorithmConfig":
+        if num_learners is not None:
+            self.num_learners = num_learners
+        if platform is not None:
+            self.learner_platform = platform
+        return self
+""", '''    def learners(self, *, num_learners: Optional[int] = None,
+                 device: Optional[str] = None,
+                 num_gpus_per_learner: Optional[float] = None
+                 ) -> "AlgorithmConfig":
+        """``device``: None (the card) or ``"cpu"``.  A learner actor on
+        the card asks ``num_gpus_per_learner`` (default 1; a share
+        0 < x < 1 is allowed, since a gang folds its gradients over the
+        host ring, not in a torch.distributed group)."""
+        if num_learners is not None:
+            self.num_learners = num_learners
+        if device is not None:
+            self.learner_device = device
+        if num_gpus_per_learner is not None:
+            if num_gpus_per_learner <= 0:
+                raise ValueError("num_gpus_per_learner must be > 0")
+            self.num_gpus_per_learner = num_gpus_per_learner
+        return self
+''')]
+RLLIB_PPO = [
+    ("EnvRunner actors → JaxLearner → weight sync.",
+     "EnvRunner actors → TorchLearner → weight sync."),
+    ("math lives in the jitted learner (core/learner.py)",
+     "math lives in the learner (core/learner.py)"),
+    ("""            num_learners=config.num_learners, seed=config.seed,
+            platform=config.learner_platform)
+""", """            num_learners=config.num_learners, seed=config.seed,
+            device=config.learner_device,
+            num_gpus_per_learner=config.num_gpus_per_learner)
+"""),
+    ("""                              seed=config.seed + i,
+                              platform=config.learner_platform)
+""", """                              seed=config.seed + i,
+                              device=config.learner_device,
+                              num_gpus_per_learner=(
+                                  config.num_gpus_per_learner))
+""")]
+RLLIB_IMPALA = [
+    ("stale either way: the jitted\nlearner recomputes",
+     "stale either way: the\nlearner recomputes"),
+    ("""                platform=config.learner_platform,
+""", """                device=config.learner_device,
+                num_gpus_per_learner=config.num_gpus_per_learner,
+"""),
+    ("""                job=self._job, platform=config.learner_platform,
+""", """                job=self._job, device=config.learner_device,
+"""),
+    ("# so the jitted update compiles ONCE (a variable-width concat would\n",
+     "# so the update keeps ONE shape (a variable-width concat would\n")]
+RLLIB_EXPORTS = [
+    ("EnvRunner actors sample on CPU, a JAX Learner updates on device, the\n"
+     "Algorithm is the Tune-trainable driver loop).\n",
+     "EnvRunner actors sample on CPU, a torch Learner updates on the card, "
+     "the\nAlgorithm is the Tune-trainable driver loop).  DQN and SAC wait "
+     "for\nROADMAP.md A5b, BC and MARWIL (``offline.py``) for A6's Data.\n"),
+    ("from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig\n", ""),
+    ("from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig\n", ""),
+    ("from ray_tpu_torch.rllib.offline import BC, BCConfig, MARWIL, "
+     "MARWILConfig\n", ""),
+    ("""__all__ = ["Algorithm", "AlgorithmConfig", "BC", "BCConfig",
+           "DQN", "DQNConfig", "FragmentStream", "IMPALA", "IMPALAConfig",
+           "InferencePool", "LearnerGang", "MARWIL", "MARWILConfig",
+           "PPO", "PPOConfig", "PodracerLearner", "SAC", "SACConfig",
+           "WeightMailbox"]
+""", """__all__ = ["Algorithm", "AlgorithmConfig", "FragmentStream", "IMPALA",
+           "IMPALAConfig", "InferencePool", "LearnerGang", "PPO",
+           "PPOConfig", "PodracerLearner", "WeightMailbox"]
+""")]
 EDITED_COPIES = {
     "util/collective/__init__.py": [
         # xla.py's in-program collectives are torch.distributed calls here
@@ -384,6 +468,10 @@ EDITED_COPIES = {
         ("series ride, PR 1-3).", "series ride).")],
     "serve/_controller.py": SERVE_STARTING,
     "llm/deployment.py": LLM_ENGINE_CARD,
+    "rllib/__init__.py": RLLIB_EXPORTS,
+    "rllib/algorithms/algorithm.py": RLLIB_LEARNERS,
+    "rllib/algorithms/ppo.py": RLLIB_PPO,
+    "rllib/algorithms/impala.py": RLLIB_IMPALA,
     "_private/config.py": [
         ("import os\nimport threading\n",
          "import os\nimport tempfile\nimport threading\n"),
