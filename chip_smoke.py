@@ -149,6 +149,31 @@ Phases, each fatal on failure:
      one-card step on a card of its own; they run in phase 6c where the
      cards are, with ``--multi-card`` (``--multi-card trainer``: only
      they), and on CPU worker actors (gloo) with ``--gloo-gang``;
+  6t. Data -> Train -> Tune (a main path, after 6g on its runtime): (a)
+     the driver writes phase 6's batch as int32 (2, 1024) rows, one .npy
+     shard a batch, 10 shards (ray_tpu_torch.data's write_numpy);
+     read_numpy -> map_batches (int64 input_ids and targets) ->
+     TorchTrainer(datasets=) with one GPU worker, which takes 6g's
+     parameters from the object store and each step's batch from
+     get_dataset_shard("train").iter_torch_batches(device=its card):
+     losses within phase 6's bf16 bar of 6g's (and whether bit for bit),
+     120 launches of flash_fwd, dQ and dK/dV, no combine or delta launch,
+     the worker on cuda:0 with no jax, optax or ray_tpu module, the split
+     coordinator with neither CUDA nor those modules (by its own report),
+     the read and map tasks refusing to run in a process where CUDA is up
+     or those modules are loaded; step ms beside 6g's, ingest (the
+     iterator's next, host clock) median and max, the fit's seconds; (b)
+     a Tuner over that trainer at gpus_per_worker=0.5, a grid of two
+     learning rates (phase 6's and 1e-3), max_concurrent_trials=2: two
+     results, no errors, both workers on card 0 with overlapping step
+     windows (each waits for the other after its first batch), the trial
+     at phase 6's rate ending on (a)'s last loss,
+     get_best_result() the lower last loss, 120 launches of each kernel a
+     trial, tuner_state.json written; each trial's step ms and the
+     sweep's seconds; (c) one MARWIL update (beta 1, 1024 rows of recorded
+     CartPole steps, minibatch 128) on the card against the CPU from the
+     same parameters, TF32 off: every minibatch's losses and the
+     parameters within 1e-5, the norm within 1e-6, relative;
   6r. RL (after 6m, on a runtime of its own): (a) PPOConfig at
      tests/test_rllib.py:75-97's config with one learner actor on the card
      must reach a return of 350 within 200,000 env steps, the learner
@@ -2748,6 +2773,7 @@ def runtime_train(card_label, ref):
           f"{rhist[-1]['loss']!r} == the uninterrupted run's "
           f"{losses[-1]!r}; fit with the retry {resumed_s:.3f} s; the "
           f"phase {phase_s:.3f} s", flush=True)
+    # the parameters stay in the object store for phase 6t
     return last["launches"], {
         "losses": losses, "bit_equal_to_phase_6": bit_equal,
         "max_rel_to_phase_6": rel, "step_ms": compute_ms,
@@ -2760,7 +2786,7 @@ def runtime_train(card_label, ref):
         "pci_bus_id": last["pci_bus_id"], "builds": last["builds"],
         "resumed_last_loss": rhist[-1]["loss"], "resumed_fit_s": resumed_s,
         "phase_s": phase_s,
-        "resources": resources}
+        "resources": resources}, params_ref
 
 
 def _trainer_case_loop(config):
@@ -2857,6 +2883,430 @@ def trainer_cases(n_cards, ref, device="cuda"):
               f"(rank, loss, grad norm, card) {rows} against {ref} (bars "
               f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})", flush=True)
     return out, failed
+
+
+# ------------------------------------------------------------ phase 6t
+# Data -> Train -> Tune: phase 6's batch as TRAIN_STEPS .npy shards of one
+# batch each, read back through ray_tpu_torch.data into TorchTrainer
+# (datasets=), then a Tuner running two such trainers side by side on card 0
+TUNE_LRS = (3e-4, 1e-3)  # phase 6's rate (ShardedPretrainer's), and 3x it
+TUNE_GPUS_PER_WORKER = 0.5
+DATA_FOREIGN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+# (c): MARWIL's update on the card against the CPU's, f32 with TF32 off, at
+# tests/test_rllib.py:316-345's batch
+MARWIL_BATCH, MARWIL_MINIBATCH, MARWIL_EPISODES = 1024, 128, 30
+MARWIL_LOSS_RTOL, MARWIL_PARAM_RTOL, MARWIL_NORM_RTOL = 1e-5, 1e-5, 1e-6
+# what PERF.md predicted before the phase first ran on the card
+DATA_TUNE_PREDICTION = (
+    "(a) losses bit for bit 6g's, 120 launches of each kernel, step ms "
+    "within 2% of 6g's, ingest median 1-5 ms (under 5% of a step) and max "
+    "2-15 s (the first batch: the pipeline's cold start), fit 25-40 s; (b) "
+    "both trials on card 0 overlapping, the 3e-4 trial bit for bit (a)'s "
+    "last loss, the 1e-3 trial the best, each trial's step 1.7-2.1x (a)'s "
+    "(two processes time-slicing one card), the sweep 40-70 s; (c) losses "
+    "and parameters within 1e-6, the norm within 1e-7; the phase 70-110 s")
+
+
+def _no_cuda_here(what: str) -> None:
+    """Raise in a data task's process (``what``) where CUDA is up or a
+    foreign module is loaded: only the train worker touches the card."""
+    torch_mod = sys.modules.get("torch")
+    if torch_mod is not None and torch_mod.cuda.is_initialized():
+        raise RuntimeError(f"CUDA is up in {what}'s process (pid "
+                           f"{os.getpid()})")
+    foreign = [m for m in sys.modules if m.split(".")[0] in DATA_FOREIGN]
+    if foreign:
+        raise RuntimeError(f"{what}'s process loaded {foreign}")
+
+
+def _widen_shard(batch):
+    """``map_batches``' function: a shard's int32 (rows, 2, S) rows as
+    int64 ``input_ids`` and ``targets``."""
+    _no_cuda_here("a map task")
+    rows = batch["data"]
+    return {"input_ids": rows[:, 0].astype(np.int64),
+            "targets": rows[:, 1].astype(np.int64)}
+
+
+def _shards_dataset(path: str):
+    """``read_numpy(path).map_batches(_widen_shard)``, read_numpy's own
+    reader (``read_datasource(NumpyDatasource(path))``) with each read
+    task first checking its process (``_no_cuda_here``)."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data.datasource import NumpyDatasource
+
+    class CheckedNumpyDatasource(NumpyDatasource):
+        def read_file(self, file):
+            _no_cuda_here("a read task")
+            return NumpyDatasource.read_file(self, file)
+
+    return rd.read_datasource(CheckedNumpyDatasource(path)).map_batches(
+        _widen_shard, batch_format="numpy")
+
+
+def _wait_for_peers(barrier) -> float:
+    """Each of ``barrier = (directory, n)``'s workers announces itself
+    there and waits for all ``n``, so that trials sharing the card step at
+    once; returns the seconds waited (0 without a barrier)."""
+    if barrier is None:
+        return 0.0
+    path, n = barrier
+    open(os.path.join(path, str(os.getpid())), "w").close()
+    t0, deadline = time.perf_counter(), time.monotonic() + 180
+    while len(os.listdir(path)) < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{len(os.listdir(path))} of {n} workers "
+                               f"reached the barrier in 180 s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def _data_loop(config):
+    """Phase 6's bf16 run in a train worker, each step's batch pulled from
+    the trainer's dataset shard (``iter_torch_batches`` onto the worker's
+    card), from the parameters 6g put in the object store, at
+    ``config["lr"]``, its first step after ``config["barrier"]``'s peers
+    are ready.  At the last step: the worker's counters, its card and the
+    coordinator's process."""
+    start_s = time.time() - config["t_fit"]
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch._native import build
+    from ray_tpu_torch.models import GPT2Config, ShardedPretrainer
+    from ray_tpu_torch.train.torch_config import _pci_bus_id
+
+    cfg = GPT2Config(remat=False)
+    params = ray_tpu_torch.get(config["params"])
+    # torch's lazy imports at a process's first optimizer, as in 6g
+    torch.optim.AdamW([torch.zeros(1, device="cuda", requires_grad=True)])
+    trainer = ShardedPretrainer(cfg, lr=config["lr"], params=params)
+    del params
+    shard = train.get_dataset_shard("train")
+    batches = iter(shard.iter_torch_batches(
+        batch_size=TRAIN_BATCH, drop_last=True, device=trainer.device))
+    torch.cuda.synchronize()
+    _zero_counts()
+    ingest, computes, window = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        ingest.append(time.perf_counter() - t0)
+        if i == 0:
+            waited_s = _wait_for_peers(config["barrier"])
+            window.append(time.time())
+        t0 = time.perf_counter()
+        loss = trainer.step(batch).item()
+        computes.append(time.perf_counter() - t0)
+        metrics = {"step": i, "loss": loss}
+        if i + 1 == TRAIN_STEPS:
+            window.append(time.time())
+            left = sum(1 for _ in batches)  # the shard holds TRAIN_STEPS
+            metrics.update(
+                launches=_read_counts(), window=window, left=left,
+                start_s=start_s, waited_s=waited_s, pid=os.getpid(),
+                device=str(trainer.device),
+                dtypes=[str(batch[k].dtype) for k in sorted(batch)],
+                pci_bus_id=_pci_bus_id(torch.cuda.current_device()),
+                builds=list(build.compiled),
+                foreign=[m for m in sys.modules
+                         if m.split(".")[0] in DATA_FOREIGN],
+                coordinator=ray_tpu_torch.get(
+                    shard._coord.process_facts.remote(), timeout=60),
+                ingest_ms=[t * 1e3 for t in ingest],
+                compute_ms=[t * 1e3 for t in computes])
+        train.report(metrics)
+
+
+def _data_run_checks(name, last, hist, want_launches) -> list:
+    """What one run of ``_data_loop`` must show: every step reported,
+    finite losses, the shard used up exactly, the kernels' launches, the
+    worker on card 0 with no foreign module and no build, and a
+    coordinator with neither CUDA nor a foreign module."""
+    faults = []
+    losses = [m["loss"] for m in hist]
+    if [m["step"] for m in hist] != list(range(TRAIN_STEPS)) or \
+            not all(np.isfinite(losses)):
+        faults.append(f"{name}: reported {[m['step'] for m in hist]}, "
+                      f"losses {losses}")
+    if last["left"]:
+        faults.append(f"{name}: {last['left']} batches left in the shard")
+    if last["launches"] != want_launches:
+        faults.append(f"{name}: the worker's launches {last['launches']}, "
+                      f"expected {want_launches}")
+    if last["device"] != "cuda:0" or last["foreign"] or last["builds"] or \
+            last["dtypes"] != ["torch.int64", "torch.int64"]:
+        faults.append(f"{name}: the worker trained on {last['device']} "
+                      f"from {last['dtypes']}, loaded {last['foreign']}, "
+                      f"built {last['builds']}")
+    coord = last["coordinator"]
+    coord_foreign = [m for m in coord["packages"] if m in DATA_FOREIGN]
+    if coord["cuda_initialized"] or coord_foreign:
+        faults.append(f"{name}: the split coordinator (pid "
+                      f"{coord['pid']}) has CUDA up: "
+                      f"{coord['cuda_initialized']}, loaded {coord_foreign}")
+    return faults
+
+
+def _marwil_card_vs_cpu() -> dict:
+    """(c) One ``_marwil_update`` on the card against the same update on
+    the CPU: the same initial parameters, the same batch of recorded
+    CartPole steps (the heuristic policy's, built in memory: the JSON
+    writer needs pandas), in the same minibatches."""
+    from ray_tpu_torch.rllib.core.learner import make_optimizer
+    from ray_tpu_torch.rllib.core.rl_module import DiscretePolicyModule
+    from ray_tpu_torch.rllib.offline import _marwil_update, rollout_rows
+
+    rows, returns = rollout_rows("CartPole-v1", MARWIL_EPISODES, seed=3)
+    idx = np.random.default_rng(1).integers(0, len(rows), MARWIL_BATCH)
+    batch = {
+        "obs": torch.tensor([rows[i]["obs"] for i in idx],
+                            dtype=torch.float32),
+        "action": torch.tensor([rows[i]["action"] for i in idx]),
+        "return_to_go": torch.tensor([rows[i]["return_to_go"] for i in idx],
+                                     dtype=torch.float32)}
+    host = DiscretePolicyModule(4, 2, generator=torch.Generator()
+                                .manual_seed(1))
+    card = DiscretePolicyModule(4, 2).to("cuda")
+    card.load_state(host.state())
+    out = {}
+    for name, mod, dev in (("cpu", host, "cpu"), ("card", card, "cuda")):
+        params = [p for _, p in mod.named_params()]
+        events = [torch.cuda.Event(enable_timing=True) for _ in "se"]
+        events[0].record()
+        norm, pi, vf = _marwil_update(
+            mod, params, make_optimizer(params, 1e-3),
+            torch.tensor(1.0, device=dev),
+            {k: v.to(dev) for k, v in batch.items()}, beta=1.0,
+            vf_coef=1.0, minibatch=MARWIL_MINIBATCH, grad_clip=10.0)
+        events[1].record()
+        torch.cuda.synchronize()
+        out[name] = (norm.item(), pi.cpu(), vf.cpu(), mod.state(),
+                     events[0].elapsed_time(events[1]))
+    norm_h, pi_h, vf_h, state_h, _ = out["cpu"]
+    norm_c, pi_c, vf_c, state_c, card_ms = out["card"]
+    loss_err = max(float(((pi_c - pi_h).abs() / pi_h.abs()).max()),
+                   float(((vf_c - vf_h).abs() / vf_h.abs()).max()))
+    param_err = max(float((state_c[k] - v).norm() / v.norm())
+                    for k, v in state_h.items() if v.norm() > 0)
+    norm_err = _rel(norm_c, norm_h)
+    print(f"[data-tune] (c) MARWIL (beta 1) on the card against the CPU, "
+          f"{MARWIL_BATCH} rows of {len(rows)} recorded steps "
+          f"({MARWIL_EPISODES} episodes, behavior return "
+          f"{float(np.mean(returns)):.1f}), {len(pi_h)} minibatches of "
+          f"{MARWIL_MINIBATCH}, TF32 off: every minibatch's policy and "
+          f"value losses max rel {loss_err:.3e} (bar {MARWIL_LOSS_RTOL}), "
+          f"parameters largest rel norm {param_err:.3e} (bar "
+          f"{MARWIL_PARAM_RTOL}), norm rel {norm_err:.3e} (bar "
+          f"{MARWIL_NORM_RTOL}); the update {card_ms:.3f} ms on the card",
+          flush=True)
+    if loss_err > MARWIL_LOSS_RTOL or param_err > MARWIL_PARAM_RTOL or \
+            norm_err > MARWIL_NORM_RTOL:
+        raise AssertionError(f"MARWIL's update on the card is not the "
+                             f"CPU's: losses {loss_err}, parameters "
+                             f"{param_err}, norm {norm_err}")
+    return {"loss_rel": loss_err, "param_rel_norm": param_err,
+            "norm_rel": norm_err, "update_ms": card_ms,
+            "pi_losses": pi_c.tolist(), "vf_losses": vf_c.tolist()}
+
+
+def data_tune_train(card_label, runtime, params_ref) -> tuple:
+    """Phase 6t, on 6g's runtime: (a) phase 6's bf16 run through
+    ``TorchTrainer(datasets=)`` from ``read_numpy`` shards, against 6g's
+    ``runtime`` result; (b) a ``Tuner`` over that trainer, two learning
+    rates side by side on card 0; (c) MARWIL's update on the card against
+    the CPU's.  Every part runs, and the phase fails at the end if any
+    failed.  Returns the launches of (a) and of (b)'s two trials."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import GPT2Config
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.torch_config import _pci_bus_id
+
+    t_phase = time.perf_counter()
+    print(f"[data-tune] prediction (PERF.md §6): {DATA_TUNE_PREDICTION}",
+          flush=True)
+    cfg = GPT2Config(remat=False)
+    calls = cfg.n_layer * TRAIN_STEPS
+    want = {"flash_fwd": calls, "flash_fwd_combine": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkdv": calls, "flash_bwd_dq": calls,
+            "fused:flash_fwd_combine": 0, "fused:flash_bwd_delta": calls}
+    out, failed = {}, []
+    launches = {"data": None, "tune": None}
+    storage = tempfile.mkdtemp(prefix="smoke_data_tune_")
+    try:
+        # the driver writes phase 6's batch as int32 (2, S) rows, one .npy
+        # shard a batch
+        b = _train_batch(cfg, TRAIN_BATCH, 0)
+        rows = np.stack([b["input_ids"], b["targets"]], 1).astype(np.int32)
+        shards = os.path.join(storage, "shards")
+        t0 = time.perf_counter()
+        rd.from_numpy([rows] * TRAIN_STEPS).write_numpy(shards)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(shards, f))
+                     for f in os.listdir(shards))
+        ds = _shards_dataset(shards)
+        loop_config = {"params": params_ref, "lr": TUNE_LRS[0],
+                       "barrier": None}
+
+        # (a) Data into TorchTrainer
+        a = None
+        try:
+            trainer = TorchTrainer(
+                _data_loop,
+                train_loop_config={**loop_config, "t_fit": time.time()},
+                datasets={"train": ds},
+                scaling_config=ScalingConfig(num_workers=1),
+                run_config=RunConfig(name="smoke-data",
+                                     storage_path=storage))
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            fit_s = time.perf_counter() - t0
+            hist, last = result.metrics_history, result.metrics
+            a = [m["loss"] for m in hist]
+            faults = _data_run_checks("(a)", last, hist, want)
+            rel = max(abs(x - y) / abs(y) for x, y in
+                      zip(a, runtime["losses"]))
+            if rel > BF16_LOSS_RTOL:
+                faults.append(f"(a): losses {a} against 6g's "
+                              f"{runtime['losses']}: rel {rel:.3e}")
+            launches["data"] = last["launches"]
+            step_ms = float(np.mean(last["compute_ms"][2:]))
+            ingest = last["ingest_ms"]
+            out["data"] = {
+                "losses": a, "bit_equal_to_6g": a == runtime["losses"],
+                "max_rel_to_6g": rel, "step_ms": step_ms,
+                "6g_step_ms": runtime["step_ms"],
+                "ingest_median_ms": float(np.median(ingest)),
+                "ingest_max_ms": float(np.max(ingest)),
+                "ingest_ms": ingest,
+                "ingest_share": float(np.median(ingest)) / step_ms,
+                "fit_s": fit_s, "start_s": last["start_s"],
+                "write_s": write_s, "shard_bytes": nbytes}
+            print(f"[data-tune] (a) read_numpy's reader ({TRAIN_STEPS} shards, "
+                  f"{nbytes / 1e6:.3f} MB, written in {write_s:.3f} s) -> "
+                  f"map_batches -> TorchTrainer(datasets=), 1 GPU worker "
+                  f"({last['device']}, PCI {last['pci_bus_id']}): losses "
+                  f"{[round(x, 4) for x in a]}, bit equal to 6g's: "
+                  f"{a == runtime['losses']} (max rel {rel:.3e}, bar "
+                  f"{BF16_LOSS_RTOL:.3e}); step_ms={step_ms:.3f} (steps "
+                  f"3-10, the worker's clock) against 6g's "
+                  f"{runtime['step_ms']:.3f}; ingest (the iterator's next, "
+                  f"host) median {np.median(ingest):.3f} ms max "
+                  f"{np.max(ingest):.3f} ms; fit {fit_s:.3f} s; worker "
+                  f"launches {last['launches']}; the coordinator (pid "
+                  f"{last['coordinator']['pid']}) with CUDA up: "
+                  f"{last['coordinator']['cuda_initialized']}; faults "
+                  f"{faults} on {card_label}", flush=True)
+            failed += faults
+        except Exception as err:
+            failed.append(f"(a): {err!r}")
+            print(f"[data-tune] (a): FAILED: {err!r}", flush=True)
+
+        # (b) a Tuner over that trainer: two rates side by side on card 0
+        try:
+            barrier = os.path.join(storage, "barrier")
+            os.makedirs(barrier)
+            trainer = TorchTrainer(
+                _data_loop,
+                train_loop_config={**loop_config, "t_fit": time.time(),
+                                   "barrier": (barrier, len(TUNE_LRS))},
+                datasets={"train": ds},
+                scaling_config=ScalingConfig(
+                    num_workers=1, gpus_per_worker=TUNE_GPUS_PER_WORKER))
+            tuner = tune.Tuner(
+                trainer, param_space={"lr": tune.grid_search(
+                    list(TUNE_LRS))},
+                tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                            max_concurrent_trials=2),
+                run_config=RunConfig(name="smoke-tune",
+                                     storage_path=storage))
+            t0 = time.perf_counter()
+            grid = tuner.fit()
+            sweep_s = time.perf_counter() - t0
+            faults = [f"(b): trial errors {grid.errors}"] \
+                if grid.errors or len(grid) != 2 else []
+            trials = {r.metrics["config"]["lr"]: r for r in grid}
+            lasts = {lr: r.metrics for lr, r in trials.items()}
+            for lr, r in trials.items():
+                faults += _data_run_checks(f"(b) lr {lr}", lasts[lr],
+                                           r.metrics_history, want)
+            windows = [m["window"] for m in lasts.values()]
+            overlap = max(w[0] for w in windows) < min(w[1] for w in windows)
+            card0 = _pci_bus_id(0)
+            buses = {m["pci_bus_id"] for m in lasts.values()}
+            if not overlap or buses != {card0}:
+                faults.append(f"(b): step windows {windows} (overlap "
+                              f"{overlap}) on cards {buses}, card 0 is "
+                              f"{card0}")
+            ref = lasts[TUNE_LRS[0]]["loss"]
+            rel = abs(ref - a[-1]) / abs(a[-1]) if a else float("inf")
+            if rel > BF16_LOSS_RTOL:
+                faults.append(f"(b): the trial at {TUNE_LRS[0]} ended on "
+                              f"{ref!r}, (a) on {a[-1] if a else None!r}")
+            best = grid.get_best_result()
+            if best.metrics["loss"] != min(m["loss"]
+                                           for m in lasts.values()):
+                faults.append(f"(b): best {best.metrics['config']} is not "
+                              f"the lowest last loss {lasts}")
+            state = os.path.join(storage, "smoke-tune", "tuner_state.json")
+            if not os.path.exists(state):
+                faults.append(f"(b): no {state}")
+            launches["tune"] = {k: sum(m["launches"][k]
+                                       for m in lasts.values())
+                                for k in want}
+            step = {lr: float(np.mean(m["compute_ms"][2:]))
+                    for lr, m in lasts.items()}
+            out["tune"] = {
+                "last_loss": {str(lr): m["loss"] for lr, m in lasts.items()},
+                "losses": {str(lr): [h["loss"] for h in r.metrics_history]
+                           for lr, r in trials.items()},
+                "bit_equal_to_a": bool(a) and ref == a[-1],
+                "rel_to_a": rel, "best_lr": best.metrics["config"]["lr"],
+                "step_ms": {str(k): v for k, v in step.items()},
+                "windows": windows, "overlap": overlap,
+                "pci_bus_ids": sorted(buses), "sweep_s": sweep_s,
+                "waited_s": {str(lr): m["waited_s"]
+                             for lr, m in lasts.items()},
+                "ingest_median_ms": {
+                    str(lr): float(np.median(m["ingest_ms"]))
+                    for lr, m in lasts.items()}}
+            print(f"[data-tune] (b) Tuner over TorchTrainer(datasets=, "
+                  f"gpus_per_worker={TUNE_GPUS_PER_WORKER}), lr grid "
+                  f"{list(TUNE_LRS)}, max_concurrent_trials=2: last losses "
+                  f"{out['tune']['last_loss']}; the trial at "
+                  f"{TUNE_LRS[0]} ends on (a)'s last loss bit for bit: "
+                  f"{out['tune']['bit_equal_to_a']} (rel {rel:.3e}); best "
+                  f"lr {best.metrics['config']['lr']}; step windows "
+                  f"overlap: {overlap}, cards {sorted(buses)}; step_ms "
+                  f"{ {k: round(v, 3) for k, v in step.items()} } (two "
+                  f"processes time-slicing one card) against (a)'s "
+                  f"{out.get('data', {}).get('step_ms', float('nan')):.3f}"
+                  f"; each waited {out['tune']['waited_s']} s for the "
+                  f"other; the sweep {sweep_s:.3f} s; launches (both trials) "
+                  f"{launches['tune']}; tuner_state.json written: "
+                  f"{os.path.exists(state)}; faults {faults}", flush=True)
+            failed += faults
+        except Exception as err:
+            failed.append(f"(b): {err!r}")
+            print(f"[data-tune] (b): FAILED: {err!r}", flush=True)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+    # (c) MARWIL's update on the card against the CPU's
+    try:
+        out["marwil"] = _marwil_card_vs_cpu()
+    except Exception as err:
+        failed.append(f"(c): {err!r}")
+        print(f"[data-tune] (c): FAILED: {err!r}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[data-tune] the phase {out['phase_s']:.3f} s on {card_label}",
+          flush=True)
+    if failed:
+        raise AssertionError("phase 6t failed: " + "; ".join(failed))
+    return launches["data"], launches["tune"], out
 
 
 # ------------------------------------------------------------ phase 6m
@@ -3884,7 +4334,14 @@ def main() -> int:
     paths.update(pipeline_paths)
     # 6g. phase 6's run through TorchTrainer on a worker actor of the
     # port's runtime (the worker zeroes and reads its counters)
-    paths["runtime"], runtime = runtime_train(label, training)
+    paths["runtime"], runtime, params_ref = runtime_train(label, training)
+    # 6t. Data -> Train -> Tune on the same runtime: phase 6's run fed by a
+    # ray_tpu_torch.data pipeline through TorchTrainer(datasets=), then a
+    # Tuner's two trials side by side on the card (each worker zeroes and
+    # reads its counters), and MARWIL's update on the card
+    paths["data"], paths["tune"], data_tune = data_tune_train(
+        label, runtime, params_ref)
+    del params_ref
     # 6m. the MPMD pipeline: two stage actors on the card, on the same
     # runtime, which the phase shuts down (each worker zeroes and reads its
     # counters)
@@ -3970,6 +4427,7 @@ def main() -> int:
     print("[ring] result " + json.dumps(ring), flush=True)
     print("[pipeline] result " + json.dumps(pipeline), flush=True)
     print("[runtime] result " + json.dumps(runtime), flush=True)
+    print("[data-tune] result " + json.dumps(data_tune), flush=True)
     print("[mpmd] result " + json.dumps(mpmd), flush=True)
     print("[rl] result " + json.dumps(rl), flush=True)
     print("[serve] result " + json.dumps(serving), flush=True)

@@ -52,6 +52,7 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.object_store import PlasmaClient
 from ray_tpu_torch._private.reference_count import ReferenceCounter
 from ray_tpu_torch._private.serialization import (
+    UNPICKLE_LOCK,
     SerializedObject,
     freeze_buffers,
     get_serialization_context,
@@ -2113,7 +2114,8 @@ class CoreWorker:
             # long-lived worker without limit.
             fn = self._fn_cache.get(spec.function_blob)
             if fn is None:
-                fn = cloudpickle.loads(spec.function_blob)
+                with UNPICKLE_LOCK:
+                    fn = cloudpickle.loads(spec.function_blob)
                 if len(self._fn_cache) >= 512:
                     self._fn_cache.clear()
                 self._fn_cache[spec.function_blob] = fn
@@ -2124,7 +2126,8 @@ class CoreWorker:
             blob = self.io.run(self.gcs_conn.call("kv_get", {"ns": "fn", "key": key}))
             if blob is None:
                 raise RaySystemError(f"function {key} missing from GCS function table")
-            fn = cloudpickle.loads(blob)
+            with UNPICKLE_LOCK:
+                fn = cloudpickle.loads(blob)
             self._fn_cache[key] = fn
         return fn
 

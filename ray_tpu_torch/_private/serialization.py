@@ -27,6 +27,13 @@ import cloudpickle
 # avoid per-buffer bookkeeping overhead.
 _OOB_THRESHOLD = 4096
 
+# Unpickling imports what a payload names (a function's module, a class's).
+# Two threads of one process that import submodules of a package neither has
+# loaded can deadlock in CPython's module locks (a submodule's lock is taken
+# before its parent package is imported: _DeadlockError), as two tasks a
+# worker runs at once can; so a process unpickles one payload at a time.
+UNPICKLE_LOCK = threading.RLock()
+
 
 class SerializedObject:
     __slots__ = ("inband", "buffers", "contained_refs")
@@ -232,7 +239,9 @@ class SerializationContext:
         return SerializedObject(inband, buffers, contained_refs)
 
     def deserialize(self, serialized: SerializedObject) -> Any:
-        return pickle.loads(serialized.inband, buffers=serialized.buffers)
+        with UNPICKLE_LOCK:
+            return pickle.loads(serialized.inband,
+                                buffers=serialized.buffers)
 
 
 _FAST_TYPES = (int, float, bool, type(None), str)

@@ -7,9 +7,10 @@ ScalingConfig, RunConfig, FailureConfig, CheckpointConfig).  The port's
 deltas: ``use_gpu``/``gpus_per_worker``, a card a worker by default, and the
 gang strategy PACK: several GPU workers share a host, one card each.  A
 share of a card (``0 < gpus_per_worker < 1``, the counterpart of a
-fractional ``tpus_per_worker``) is for MPMD stage gangs of one worker, which
-bring up no process group: ``TorchTrainer`` refuses it for a gang that
-does (``train/torch_config.check_card_share``).
+fractional ``tpus_per_worker``) is for gangs of one worker (a one-worker
+trainer, as a Tuner's trials sharing a card run, or an MPMD stage gang),
+which bring up no process group: ``TorchTrainer`` refuses it for a gang
+that does (``train/torch_config.check_card_share``).
 """
 
 from __future__ import annotations

@@ -246,7 +246,7 @@ def report(metrics: Dict[str, Any],
 def get_dataset_shard(name: str = "train"):
     """This worker's split of a Dataset passed to the trainer as
     ``datasets={name: ds}`` (reference: ray.train.get_dataset_shard) — a
-    DataIterator whose iter_batches/iter_jax_batches pull from the shared
+    DataIterator whose iter_batches/iter_torch_batches pull from the shared
     streaming executor."""
     session = get_session()
     if session is None:

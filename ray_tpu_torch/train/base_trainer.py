@@ -231,6 +231,11 @@ class DataParallelTrainer(BaseTrainer):
         finally:
             metrics["gang_workers"].set(0, mlabels)
             executor.shutdown()
+            if dataset_shards is not None:
+                import ray_tpu_torch
+
+                for its in per_name.values():
+                    ray_tpu_torch.kill(its[0]._coord)
 
         return Result(
             metrics=last_metrics,

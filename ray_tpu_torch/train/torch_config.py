@@ -97,8 +97,9 @@ def check_card_share(gpus_per_worker: float, gang: int) -> None:
     if 0 < gpus_per_worker < 1 and gang > 1:
         raise ValueError(
             f"gpus_per_worker={gpus_per_worker:g}: a share of a card is for "
-            f"MPMD stage gangs of one worker (pipeline_stages or mesh "
-            f"with num_workers == dp * pipeline_stages); this layout puts "
+            f"gangs of one worker (num_workers=1, or MPMD stage gangs: "
+            f"pipeline_stages or mesh with num_workers == dp * "
+            f"pipeline_stages); this layout puts "
             f"{gang} workers in one torch.distributed gang, which needs a "
             f"card for each")
 

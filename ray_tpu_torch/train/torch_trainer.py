@@ -47,7 +47,17 @@ worker bring up no process group, so their workers may share a card
         scaling_config=ScalingConfig(num_workers=2, gpus_per_worker=0.5),
         pipeline_stages=2, num_microbatches=4)
 
-``datasets=`` is not ported and raises.
+``datasets={"train": ds}`` splits each ``ray_tpu_torch.data`` Dataset
+into one coordinated streaming iterator per worker
+(``ds.streaming_split(num_workers, equal=True)``); the loop pulls its
+share with ``train.get_dataset_shard("train")``, and
+``iter_torch_batches(device=...)`` moves each batch to its card::
+
+    def train_loop(config):
+        shard = train.get_dataset_shard("train")
+        for batch in shard.iter_torch_batches(batch_size=16,
+                                              device="cuda"):
+            loss = trainer.step(batch)
 """
 
 from __future__ import annotations
@@ -82,10 +92,6 @@ class TorchTrainer(DataParallelTrainer):
                  mesh: Optional[tuple] = None):
         import dataclasses
 
-        if datasets:
-            raise NotImplementedError(
-                "TorchTrainer: datasets= needs the Data library, which is "
-                "not ported; feed batches from the loop")
         if pipeline_stages < 1:
             raise ValueError(f"pipeline_stages must be >= 1, got "
                              f"{pipeline_stages}")
@@ -128,5 +134,6 @@ class TorchTrainer(DataParallelTrainer):
             backend_config=torch_config,
             scaling_config=scaling_config,
             run_config=run_config,
+            datasets=datasets,
             resume_from_checkpoint=resume_from_checkpoint,
         )

@@ -19,13 +19,19 @@ after a flush), ``:225-254`` (Sebulba: zero local forwards, the pool
 batching two runners, no CUDA and no JAX in the runners) and ``:257-279``
 (the streaming smoke); ``llm_policy_pool`` on a tiny GPT-2 on the CPU,
 whose greedy tokens for episode-so-far prompts equal the port's in-process
-engine's.  Nothing falls back: without a GPU, a learner on the default
+engine's.  Offline RL (``rllib/offline.py``): one ``_marwil_update`` at
+MARWIL's beta 1 and BC's beta 0 against the JAX one from the same
+parameters and minibatches (every minibatch's losses and norm, the
+parameters, at 1e-5); ``record_dataset``'s rows equal the JAX package's
+(recorded by a child process on the JAX runtime); and
+``tests/test_rllib.py:316``'s BC and MARWIL learning bars on the CPU.  Nothing falls back: without a GPU, a learner on the default
 device raises at once.
 
 JAX and the JAX package are imported inside the tests only: the workers
 that import this module never load them.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -536,3 +542,204 @@ def test_llm_policy_pool_matches_the_in_process_engine(runtime):
     core = EngineCore(**kwargs)
     for prompt, tokens in sent.values():
         assert core.generate(prompt, {"max_tokens": 6})["tokens"] == tokens
+
+
+# ================================================================ offline
+MARWIL_BATCH, MARWIL_MINIBATCH = 1024, 128
+
+
+def _marwil_batch(seed=6):
+    """``tests/test_rllib.py:316``'s batch shape: 1024 CartPole-like rows
+    with returns-to-go as the heuristic policy's reach them."""
+    rng = np.random.default_rng(seed)
+    n = MARWIL_BATCH
+    return {"obs": rng.standard_normal((n, 4)).astype(np.float32),
+            "action": rng.integers(0, 2, n).astype(np.int64),
+            "return_to_go": (rng.random(n) * 50).astype(np.float32)}
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.0])
+def test_marwil_update_matches_jax(beta):
+    """One ``_marwil_update`` (MARWIL at beta 1, BC at beta 0) against the
+    JAX one from the same parameters on the same minibatches: every
+    minibatch's policy and value losses and the moving norm after it, and
+    the parameters at the end, at 1e-5.  The JAX scan's per-minibatch
+    losses are its body's: the JAX update on one minibatch at a time,
+    carrying params, optimizer state and norm, which the whole-batch call
+    must end on too."""
+    import functools
+
+    import jax
+    import optax
+
+    from ray_tpu.rllib.core import rl_module as jm
+    from ray_tpu.rllib.offline import _marwil_update as jax_update
+
+    from ray_tpu_torch.rllib.core.learner import make_optimizer
+    from ray_tpu_torch.rllib.offline import _marwil_update
+
+    kw = dict(beta=beta, vf_coef=1.0, minibatch=MARWIL_MINIBATCH)
+    jmod = jm.DiscretePolicyModule(4, 2, hidden=(64, 64))
+    start = jmod.init(jax.random.PRNGKey(1))
+    tx = optax.chain(optax.clip_by_global_norm(10.0), optax.adam(1e-3))
+    batch = _marwil_batch()
+    # jitted as MARWIL jits it (``offline.py:171-173``)
+    update = jax.jit(functools.partial(jax_update, jmod, tx, **kw))
+    jparams, jopt, jnorm = start, tx.init(start), jax.numpy.asarray(1.0)
+    want = []
+    for i in range(MARWIL_BATCH // MARWIL_MINIBATCH):
+        mb = {k: v[i * MARWIL_MINIBATCH:(i + 1) * MARWIL_MINIBATCH]
+              for k, v in batch.items()}
+        jparams, jopt, jnorm, pi, vf = update(jparams, jopt, jnorm, mb)
+        want.append((float(pi), float(vf), float(jnorm)))
+    whole = update(start, tx.init(start), jax.numpy.asarray(1.0), batch)
+    _assert_states_close(params_from_jax(whole[0]),
+                         params_from_jax(jparams), **PARAM_TOL)
+
+    mod = DiscretePolicyModule(4, 2, hidden=(64, 64))
+    mod.load_state(params_from_jax(start))
+    params = [p for _, p in mod.named_params()]
+    opt = make_optimizer(params, 1e-3)
+    norm = torch.tensor(1.0)
+    got = []
+    for i in range(MARWIL_BATCH // MARWIL_MINIBATCH):
+        mb = {k: torch.from_numpy(v[i * MARWIL_MINIBATCH:
+                                    (i + 1) * MARWIL_MINIBATCH])
+              for k, v in batch.items()}
+        norm, pi, vf = _marwil_update(mod, params, opt, norm, mb,
+                                      grad_clip=10.0, **kw)
+        got.append((pi.item(), vf.item(), norm.item()))
+    np.testing.assert_allclose(np.array(got)[:, :2], np.array(want)[:, :2],
+                               rtol=1e-5)
+    np.testing.assert_allclose(np.array(got)[:, 2], np.array(want)[:, 2],
+                               rtol=1e-6)
+    _assert_states_close(mod.state(), params_from_jax(jparams), **PARAM_TOL)
+
+    # the whole batch in one call: the same minibatches in order
+    mod2 = DiscretePolicyModule(4, 2, hidden=(64, 64))
+    mod2.load_state(params_from_jax(start))
+    params2 = [p for _, p in mod2.named_params()]
+    norm2, pis, vfs = _marwil_update(
+        mod2, params2, make_optimizer(params2, 1e-3), torch.tensor(1.0),
+        {k: torch.from_numpy(v) for k, v in batch.items()},
+        grad_clip=10.0, **kw)
+    assert pis.shape == vfs.shape == (MARWIL_BATCH // MARWIL_MINIBATCH,)
+    np.testing.assert_allclose(pis.numpy(), np.array(got)[:, 0], rtol=1e-6)
+    np.testing.assert_allclose(norm2.item(), float(whole[2]), rtol=1e-6)
+    _assert_states_close(mod2.state(), mod.state(), rtol=0, atol=0)
+
+
+def _jax_record(path):
+    """The JAX package's ``record_dataset`` on its own runtime (a child
+    process: the two runtimes never share one)."""
+    import json
+
+    import ray_tpu
+    from ray_tpu.rllib.offline import record_dataset as jax_record
+
+    ray_tpu.init(num_cpus=2, object_store_memory=128 * 1024 ** 2)
+    try:
+        stats = jax_record(path, "CartPole-v1", n_episodes=30, seed=3)
+    finally:
+        ray_tpu.shutdown()
+    with open(path + ".stats.json", "w") as f:
+        json.dump(stats, f)
+
+
+def _read_rows(path):
+    import json
+
+    rows = []
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name)) as f:
+            rows.extend(json.loads(line) for line in f if line.strip())
+    return rows
+
+
+@pytest.fixture(scope="module")
+def offline_data(runtime, tmp_path_factory):
+    """CartPole episodes recorded by the port's ``record_dataset`` and, in
+    a child process started beside it, by the JAX package's."""
+    import json
+    import signal
+    import subprocess
+    import sys
+
+    root = tmp_path_factory.mktemp("offline")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, test_torch_rllib as t; "
+         "t._jax_record(sys.argv[1])", str(root / "jax")], cwd=here,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    from ray_tpu_torch.rllib.offline import record_dataset
+
+    stats = record_dataset(str(root / "port"), "CartPole-v1", n_episodes=30,
+                           seed=3)
+    try:
+        log, _ = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+    assert proc.returncode == 0, log.decode()[-4000:]
+    with open(str(root / "jax") + ".stats.json") as f:
+        jax_stats = json.load(f)
+    return {"path": str(root / "port"), "stats": stats,
+            "jax_path": str(root / "jax"), "jax_stats": jax_stats}
+
+
+def test_record_dataset_matches_jax(offline_data):
+    """The port's recorded rows equal the JAX package's, row for row."""
+    assert offline_data["stats"] == offline_data["jax_stats"]
+    assert offline_data["stats"]["steps"] > 300
+    rows = _read_rows(offline_data["path"])
+    assert rows == _read_rows(offline_data["jax_path"])
+    assert len(rows) == offline_data["stats"]["steps"]
+
+
+def test_offline_bc_and_marwil_learn_from_dataset(offline_data):
+    """``tests/test_rllib.py:316``: BC and MARWIL, learning on the CPU
+    from the recorded dataset, reach 60% of the behavior policy's
+    return."""
+    from ray_tpu_torch.rllib import BCConfig, MARWILConfig
+
+    torch.set_num_threads(1)
+    path = offline_data["path"]
+    behavior_return = offline_data["stats"]["mean_return"]
+    cfg = (BCConfig().environment("CartPole-v1")
+           .offline_data(input_path=path)
+           .learners(device="cpu").debugging(seed=1)
+           .training(train_batch_size=1024, minibatch_size=128, lr=1e-3))
+    algo = cfg.build()
+    for _ in range(40):
+        out = algo.train()
+    assert out["policy_loss"] == out["policy_loss"]  # finite
+    ev = algo.evaluate(n_episodes=5)
+    assert ev["episode_return_mean"] >= 0.6 * behavior_return, (
+        ev, behavior_return)
+
+    mcfg = (MARWILConfig().environment("CartPole-v1")
+            .offline_data(input_path=path)
+            .learners(device="cpu").debugging(seed=1)
+            .training(train_batch_size=1024, minibatch_size=128, lr=1e-3,
+                      beta=1.0))
+    malgo = mcfg.build()
+    for _ in range(150):
+        mout = malgo.train()
+    assert mout["vf_loss"] < 10_000
+    mev = malgo.evaluate(n_episodes=5)
+    assert mev["episode_return_mean"] >= 0.6 * behavior_return, (
+        mev, behavior_return)
+
+
+def test_offline_learner_raises_without_a_card(offline_data):
+    """The learner runs on the card unless ``.learners(device="cpu")``;
+    without one it raises."""
+    from ray_tpu_torch.rllib import BCConfig
+
+    cfg = (BCConfig().environment("CartPole-v1")
+           .offline_data(input_path=offline_data["path"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cfg.build()

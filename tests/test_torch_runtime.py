@@ -26,6 +26,7 @@ its functions imports it.
 import ast
 import os
 import pathlib
+import pickle
 import re
 import sys
 
@@ -58,7 +59,7 @@ _private/gcs/__init__.py _private/gcs/pg_manager.py
 _private/gcs/storage.py runtime_env/__init__.py
 util/__init__.py util/placement_group.py util/scheduling_strategies.py
 air/__init__.py air/result.py train/_checkpoint.py train/storage.py
-train/_session.py train/_metrics.py tune/_single_trial.py
+train/_metrics.py tune/_single_trial.py
 accelerators/accelerator.py
 serve/__init__.py serve/config.py serve/_metrics.py serve/batching.py
 serve/multiplex.py serve/_streaming.py serve/handle.py serve/_replica.py
@@ -69,7 +70,11 @@ dag/__init__.py dag/compiled.py train/pipeline/channels.py
 rllib/_metrics.py rllib/algorithms/__init__.py rllib/core/__init__.py
 rllib/env/__init__.py rllib/env/cartpole.py rllib/env/pendulum.py
 rllib/podracer/__init__.py rllib/podracer/weights.py
-rllib/podracer/stream.py""".split()
+rllib/podracer/stream.py
+data/_executor.py data/_logical.py data/_metrics.py data/aggregate.py
+data/datasource.py data/read_api.py
+tune/search.py tune/schedulers.py tune/session.py tune/_trial_coordinator.py
+tune/tuner.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -279,6 +284,32 @@ _DRAIN_RETRY_S = 0.05
 
 def _actor_death_msg(actor_id: ActorID, cause: str) -> str:"""),
 ]
+# C18: a worker loads a task's function under the process's unpickle lock,
+# so two tasks running at once never import one package's submodules
+# concurrently (serialization.UNPICKLE_LOCK)
+UNPICKLE_ONE_AT_A_TIME = [
+    ("""    SerializedObject,
+    freeze_buffers,
+    get_serialization_context,
+)
+""", """    UNPICKLE_LOCK,
+    SerializedObject,
+    freeze_buffers,
+    get_serialization_context,
+)
+"""),
+    ("""            if fn is None:
+                fn = cloudpickle.loads(spec.function_blob)
+""", """            if fn is None:
+                with UNPICKLE_LOCK:
+                    fn = cloudpickle.loads(spec.function_blob)
+"""),
+    ("""            fn = cloudpickle.loads(blob)
+            self._fn_cache[key] = fn
+""", """            with UNPICKLE_LOCK:
+                fn = cloudpickle.loads(blob)
+            self._fn_cache[key] = fn
+""")]
 # the host ring takes torch tensors: a CUDA one goes to the host at the
 # op's entry and comes back on its device at the exit
 COLLECTIVE_TENSORS = [
@@ -441,19 +472,135 @@ RLLIB_EXPORTS = [
      "Algorithm is the Tune-trainable driver loop).\n",
      "EnvRunner actors sample on CPU, a torch Learner updates on the card, "
      "the\nAlgorithm is the Tune-trainable driver loop).  DQN and SAC wait "
-     "for\nROADMAP.md A5b, BC and MARWIL (``offline.py``) for A6's Data.\n"),
+     "for\nROADMAP.md A5b.\n"),
     ("from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig\n", ""),
     ("from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig\n", ""),
-    ("from ray_tpu_torch.rllib.offline import BC, BCConfig, MARWIL, "
-     "MARWILConfig\n", ""),
     ("""__all__ = ["Algorithm", "AlgorithmConfig", "BC", "BCConfig",
            "DQN", "DQNConfig", "FragmentStream", "IMPALA", "IMPALAConfig",
            "InferencePool", "LearnerGang", "MARWIL", "MARWILConfig",
            "PPO", "PPOConfig", "PodracerLearner", "SAC", "SACConfig",
            "WeightMailbox"]
-""", """__all__ = ["Algorithm", "AlgorithmConfig", "FragmentStream", "IMPALA",
-           "IMPALAConfig", "InferencePool", "LearnerGang", "PPO",
-           "PPOConfig", "PodracerLearner", "WeightMailbox"]
+""", """__all__ = ["Algorithm", "AlgorithmConfig", "BC", "BCConfig",
+           "FragmentStream", "IMPALA", "IMPALAConfig", "InferencePool",
+           "LearnerGang", "MARWIL", "MARWILConfig", "PPO", "PPOConfig",
+           "PodracerLearner", "WeightMailbox"]
+""")]
+# Data (data/): the card's hand-off is iter_torch_batches(device=...), which
+# the JAX package already has; iter_jax_batches goes
+DATA_JAX_BATCHES = """    def iter_jax_batches(self, *, batch_size: Optional[int] = 256,
+                         drop_last: bool = True, device=None, sharding=None,
+                         prefetch: int = 2, dtypes=None) -> Iterator[Any]:
+"""
+DATA_ITERATOR = [
+    ("""DataIterator: batched consumption of a Dataset, including the TPU path.
+
+Reference: python/ray/data/iterator.py (DataIterator.iter_batches /
+iter_torch_batches) and _internal/execution/streaming_split coordination.
+The TPU-first addition is ``iter_jax_batches``: numeric columns go host ->
+device with a prefetch queue so the next batch's transfer overlaps the
+current step's compute, optionally placed under a ``jax.sharding`` for a
+multi-device mesh.
+""", """DataIterator: batched consumption of a Dataset, including the card path.
+
+Reference: python/ray/data/iterator.py (DataIterator.iter_batches /
+iter_torch_batches) and _internal/execution/streaming_split coordination.
+The card path is ``iter_torch_batches(device=...)``: numeric columns become
+tensors and go host -> device, one batch at a time, as the consumer asks.
+"""),
+    (DATA_JAX_BATCHES + """        import jax
+
+        def put(batch: Block):
+            batch = BlockAccessor.to_numpy_block(batch)
+            out = {}
+            for k, v in batch.items():
+                if v.dtype.kind == "O":
+                    out[k] = v          # leave object columns on host
+                    continue
+                if dtypes and k in dtypes:
+                    v = v.astype(dtypes[k])
+                if sharding is not None:
+                    out[k] = jax.device_put(v, sharding)
+                elif device is not None:
+                    out[k] = jax.device_put(v, device)
+                else:
+                    out[k] = jax.device_put(v)
+            return out
+
+        # Depth-`prefetch` pipeline: device transfers for upcoming batches are
+        # issued before the current batch is consumed, hiding host->HBM copy
+        # behind step compute.
+        queue: collections.deque = collections.deque()
+        it = _rebatch(self._iter_blocks(), batch_size, drop_last, None, None)
+        for batch in it:
+            queue.append(put(batch))
+            if len(queue) > prefetch:
+                yield queue.popleft()
+        while queue:
+            yield queue.popleft()
+
+""", ""),
+    # a read-only column (an Arrow-backed block's) is copied: its tensor
+    # owns its memory, and torch.from_numpy does not warn
+    ("""        object columns stay numpy.\"\"\"
+""", """        object columns stay numpy.  A read-only column (an Arrow-backed
+        block's) is copied on the host first, so its tensor owns its
+        memory; a writeable one passes zero-copy.\"\"\"
+"""),
+    ("""                t = torch.from_numpy(np.ascontiguousarray(v))
+""", """                if not v.flags.writeable:
+                    v = np.array(v)
+                t = torch.from_numpy(np.ascontiguousarray(v))
+"""),
+    # what the card's checks ask of a coordinator: no CUDA, no JAX
+    ("""    def _rebalance_equal(self):
+""", '''    def process_facts(self) -> Dict[str, Any]:
+        """The coordinator's process: its pid, whether CUDA is up in it,
+        and the top-level packages it has loaded."""
+        import os
+        import sys
+
+        torch = sys.modules.get("torch")
+        return {"pid": os.getpid(),
+                "cuda_initialized": bool(
+                    torch is not None and torch.cuda.is_initialized()),
+                "packages": sorted({m.split(".")[0]
+                                    for m in list(sys.modules)})}
+
+    def _rebalance_equal(self):
+''')]
+DATA_DATASET = [
+    ("""feeds ``jax.device_put`` directly, which is the point: the terminal consumer
+on this stack is a TPU training loop.
+""", """feeds ``torch.from_numpy`` directly, which is the point: the terminal
+consumer on this stack is a training loop on the card.
+"""),
+    (DATA_JAX_BATCHES + """        return self.iterator().iter_jax_batches(
+            batch_size=batch_size, drop_last=drop_last, device=device,
+            sharding=sharding, prefetch=prefetch, dtypes=dtypes)
+
+""", "")]
+DATA_BLOCK = [
+    ("""- dict[str, np.ndarray] — the TPU hand-off layout: round-trips the
+  shared-memory store zero-copy via pickle-5 buffers and feeds
+  ``jax.device_put`` without a pivot;
+""", """- dict[str, np.ndarray] — the card hand-off layout: round-trips the
+  shared-memory store zero-copy via pickle-5 buffers and feeds
+  ``torch.from_numpy`` without a pivot;
+"""),
+    ("(the jax hand-off / all-to-all pivot)",
+     "(the torch hand-off / all-to-all pivot)"),
+    ("the TPU-first canonical layout", "the card-first canonical layout")]
+DATA_INIT = [
+    ("""TPU-native counterpart of Ray Data (reference: python/ray/data/): the same
+lazy logical-plan / streaming-executor architecture, with dict-of-numpy
+blocks as the canonical format so data flows shared-memory store ->
+``jax.device_put`` without row pivots, and ``iter_jax_batches`` /
+``streaming_split`` feeding per-host TPU training loops.
+""", """Counterpart of Ray Data (reference: python/ray/data/): the same lazy
+logical-plan / streaming-executor architecture, with dict-of-numpy blocks
+as the canonical format so data flows shared-memory store ->
+``torch.from_numpy`` without row pivots, and ``iter_torch_batches`` /
+``streaming_split`` feeding training loops on the cards.
 """)]
 EDITED_COPIES = {
     "util/collective/__init__.py": [
@@ -469,6 +616,12 @@ EDITED_COPIES = {
     "serve/_controller.py": SERVE_STARTING,
     "llm/deployment.py": LLM_ENGINE_CARD,
     "rllib/__init__.py": RLLIB_EXPORTS,
+    "data/__init__.py": DATA_INIT,
+    "data/block.py": DATA_BLOCK,
+    "data/dataset.py": DATA_DATASET,
+    "data/iterator.py": DATA_ITERATOR,
+    "train/_session.py": [
+        ("iter_batches/iter_jax_batches", "iter_batches/iter_torch_batches")],
     "rllib/algorithms/algorithm.py": RLLIB_LEARNERS,
     "rllib/algorithms/ppo.py": RLLIB_PPO,
     "rllib/algorithms/impala.py": RLLIB_IMPALA,
@@ -498,7 +651,7 @@ def temp_root() -> str:
     "_private/core_worker.py": [
         ("import random\nimport threading\n",
          "import random\nimport sys\nimport threading\n"),
-        CONFIG_IMPORT, TEMP_ROOT, *DRAIN_PACED,
+        CONFIG_IMPORT, TEMP_ROOT, *DRAIN_PACED, *UNPICKLE_ONE_AT_A_TIME,
         ("    async def rpc_lease_reclaim(self, conn, msg):\n", '''    async def rpc_assign_cards(self, conn, msg):
         """The nodelet gives this worker its lease's cards: CUDA in this
         process sees only them.  CUDA reads the variable once, when it
@@ -521,7 +674,20 @@ def temp_root() -> str:
          "ray_tpu_torch.train.torch_config import")],
     "train/base_trainer.py": [
         ("ray_tpu_torch.train.jax_config import",
-         "ray_tpu_torch.train.torch_config import")],
+         "ray_tpu_torch.train.torch_config import"),
+        # C17: the split coordinators end with the fit that made them
+        # (each holds a CPU; a _SplitIterator is in a reference cycle, so
+        # its handle waits for the cyclic GC)
+        ("""            metrics["gang_workers"].set(0, mlabels)
+            executor.shutdown()
+""", """            metrics["gang_workers"].set(0, mlabels)
+            executor.shutdown()
+            if dataset_shards is not None:
+                import ray_tpu_torch
+
+                for its in per_name.values():
+                    ray_tpu_torch.kill(its[0]._coord)
+""")],
     "_private/worker.py": [
         ("num_tpus: Optional[float]", "num_gpus: Optional[float]"),
         ("if num_tpus is not None:\n                res[\"TPU\"] = "
@@ -895,3 +1061,60 @@ def test_queued_actor_call_lets_the_io_loop_run_when_the_gcs_is_gone(
     assert got["loop_s"] is not None and got["loop_s"] < 1.0, got
     assert got["shutdown_s"] < 5.0, got
     assert got["io_alive"] is False, got
+
+
+_IMPORT_RACE = """
+import pickle, sys, threading
+import ray_tpu_torch
+from ray_tpu_torch._private import serialization
+blobs = pickle.load(open(sys.argv[1], "rb"))
+ctx = serialization.get_serialization_context()
+bar = threading.Barrier(len(blobs))
+errors = []
+def load(blob):
+    bar.wait()
+    try:
+        ctx.deserialize(serialization.SerializedObject(blob, []))
+    except Exception as e:
+        errors.append(repr(e))
+threads = [threading.Thread(target=load, args=(b,)) for b in blobs]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(60)
+print("errors", errors)
+"""
+
+
+def _import_race(tmp_path) -> list:
+    """Two threads of a fresh process unpickle, at once, a class of
+    ``ray_tpu_torch.data._executor`` and one of
+    ``ray_tpu_torch.data.block``: each import of the data package begins
+    with a different submodule.  The children's outputs."""
+    import subprocess
+
+    from ray_tpu_torch.data._executor import DataContext
+    from ray_tpu_torch.data.block import BlockMetadata
+
+    path = tmp_path / "blobs.pkl"
+    with open(path, "wb") as f:
+        pickle.dump([pickle.dumps(DataContext), pickle.dumps(BlockMetadata)],
+                    f)
+    outs = []
+    for _ in range(4):
+        out = subprocess.run(
+            [sys.executable, "-c", _IMPORT_RACE, str(path)],
+            env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+            text=True, timeout=120)
+        outs.append(out.stdout.strip() or out.stderr[-2000:])
+    return outs
+
+
+def test_concurrent_unpickling_imports_one_payload_at_a_time(tmp_path):
+    """C18: two tasks that a worker runs at once, each unpickling a payload
+    that imports a different submodule of a package the process has not
+    loaded, deadlocked in CPython's module locks (``_DeadlockError``,
+    phase 6t's write tasks on the card).  A process unpickles one payload
+    at a time (``serialization.UNPICKLE_LOCK``), so the race never
+    starts."""
+    assert _import_race(tmp_path) == ["errors []"] * 4

@@ -6,7 +6,8 @@ The port of ``tests/test_train.py``'s cases (``:96, 108, 130, 153, 169,
 torch (gradients all-reduced over 2 workers, 4 reports, falling loss, a
 checkpoint at step 3); ``restore()`` after an injected failure resumes at
 step 3; ``FailureConfig`` retries resume at step 2; ``report`` outside a
-session is a no-op; and GPT-2 tiny under ``MeshConfig(dp=-1, fsdp=2, tp=2)``
+session is a no-op; ``datasets=`` gives each of two workers its equal
+share of ``range(128)`` through ``get_dataset_shard``; and GPT-2 tiny under ``MeshConfig(dp=-1, fsdp=2, tp=2)``
 on 4 worker actors, each step's loss within 1e-5 of the port's one-process
 trainer and within 1e-4 of the JAX ``ShardedPretrainer`` (same mesh, 4
 virtual CPU devices) from the same parameters and batches.  Nothing falls
@@ -217,8 +218,54 @@ def test_default_device_is_the_card():
     assert mpmd.backend_config.pipeline_stages == 2
     assert mpmd.train_loop_config["_pipeline"] == {
         "n_stages": 2, "n_micro": 1, "dp": 1, "tp": 1}
-    with pytest.raises(NotImplementedError, match="Data library"):
-        TorchTrainer(_dp_train_loop, datasets={"train": [1]}, **_cpu())
+
+
+def _shard_loop(config):
+    """Each rank reads its share of the trainer's dataset and writes what
+    it saw to a file of its own."""
+    import json
+
+    from ray_tpu_torch import train
+
+    shard = train.get_dataset_shard("train")
+    ids = []
+    for batch in shard.iter_batches(batch_size=16, drop_last=False):
+        ids.extend(batch["id"].tolist())
+    rank = train.get_context().get_world_rank()
+    with open(os.path.join(config["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(ids, f)
+    train.report({"rows": len(ids)})
+
+
+def test_datasets_flow_to_workers(runtime, tmp_path):
+    """``tests/test_train.py:222-245``: ``datasets=`` splits into one
+    streaming iterator per worker (``streaming_split(equal=True)``), read
+    through ``train.get_dataset_shard``: each of two CPU workers gets 64
+    rows of ``range(128)``, every row exactly once.  The split's
+    coordinator ends with the fit, which gives its CPU back (C17)."""
+    import json
+
+    from ray_tpu_torch import data as rd
+
+    trainer = TorchTrainer(
+        _shard_loop, train_loop_config={"out": str(tmp_path)},
+        run_config=RunConfig(name="data-train",
+                             storage_path=str(tmp_path / "runs")),
+        datasets={"train": rd.range(128, parallelism=4)}, **_cpu())
+    result = trainer.fit()
+    assert result.metrics["rows"] == 64
+    seen = []
+    for rank in range(2):
+        with open(tmp_path / f"rank{rank}.json") as f:
+            ids = json.load(f)
+        assert len(ids) == 64
+        seen.extend(ids)
+    assert sorted(seen) == list(range(128))
+    deadline = time.monotonic() + 10
+    while ray_tpu_torch.available_resources().get("CPU") != 4.0:
+        assert time.monotonic() < deadline, \
+            ray_tpu_torch.available_resources()
+        time.sleep(0.1)
 
 
 def test_gang_workers_see_their_nodes_cards():
