@@ -199,7 +199,43 @@ Phases, each fatal on failure:
      equal to its attention calls, no backward launch, no page leaked,
      prefix-cache hits at every step after the first; the driver's
      counters, zeroed before (a), read 0 after (c); one runner's env
-     steps/s at one torch thread and at torch's default;
+     steps/s at one torch thread and at torch's default; (e) DQN at
+     tests/test_rllib.py:236-244's config (CartPole-v1, the runner in the
+     driver, seed 1), the update on cuda:0, must reach 350 within 640,000
+     env steps (iterations, env steps, the update's median by CUDA events,
+     a fragment's host ms; a QEnvRunner actor never starts CUDA; the
+     driver loads no jax, optax or ray_tpu), then one _dqn_update (13
+     minibatches of 128) on the card against the CPU from the trained
+     parameters and a batch of its buffer, TF32 off: losses and parameters
+     within 1e-5 relative, the target bit for bit the parameters before
+     it (tau 0); (f) SAC at tests/test_rllib.py:377-389's config
+     (Pendulum-v1, seed 0) for 45 iterations, the update on cuda:0: at
+     least 20,000 env steps, the greedy evaluate(5) at least -400, alpha
+     under 0.9 (the update's median; an SACEnvRunner actor never starts
+     CUDA), then 4 minibatches of 256 of _sac_update on the card against
+     the CPU with the same parameters, batch and noise: the first
+     minibatch's losses within 1e-5, the parameters, target_q and alpha
+     within 1e-4, relative; the driver's counters, zeroed before (e),
+     read 0 after (f);
+  6o. observability of the card's paths, each on the runtime of the path it
+     reads, on [obs-6o] lines: (a) at the end of 5s, util.state.
+     summarize_llm() holds the engine's 16 requests and their tokens; for
+     each streamed request, state.critical_path(request_id=...) whose
+     buckets sum to its TTFT within 5 %, printed beside the TTFT the driver
+     measured; ``python -m ray_tpu_torch.dashboard --address ...`` as a
+     process of its own answers /api/llm and /api/critical_path with the
+     state API's numbers, and reports (on a signal) no CUDA and no jax or
+     ray_tpu module; (b) after 6m's two-stage fit, state.critical_path(
+     step=5) from the stages' stamps: the critical stage's bucket mass its
+     wall within 5e-6 s, its bubble fraction within 0.15
+     of its BubbleClock, on every step 1-9 the busiest stage (by the
+     path's exec bucket) the last one, holding lm_head and the loss, and
+     the critical stage (the longest stamped wall, which follows which
+     stage began the step first) printed by step; (c) 6g's first fit
+     inside util.tracing.trace_span:
+     state.critical_path(trace_id=...) holds the worker's session_start
+     and is no longer than the fit's wall, and export_otlp writes the
+     trace with its on_critical_path spans;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -1131,9 +1167,10 @@ def _port_processes(session_dir: str) -> list:
 
 def _stream_round(handle, prompts, n_tokens):
     """Every request sent at once through ``handle``, streamed, each stream
-    read by a thread of its own: the tokens, and the round's wall time,
-    TTFT and mean inter-token gap from the arrival of each event on this
-    process's clock."""
+    read by a thread of its own: the tokens, the round's wall time, TTFT
+    and mean inter-token gap from the arrival of each event on this
+    process's clock, and each request's id (its last event's) and TTFT
+    (``requests``)."""
     import threading
 
     events = [None] * len(prompts)
@@ -1162,7 +1199,7 @@ def _stream_round(handle, prompts, n_tokens):
     wall = time.perf_counter() - t0
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"streams failed: {errors}")
-    tokens, ttft, gaps = [], [], []
+    tokens, ttft, gaps, requests = [], [], [], []
     for sent, evs in events:
         if not evs[-1][1].get("done") or \
                 evs[-1][1]["finish_reason"] != "length":
@@ -1171,13 +1208,14 @@ def _stream_round(handle, prompts, n_tokens):
         stamps = [t for t, _ in evs[:-1]]
         ttft.append(stamps[0] - sent)
         gaps.append((stamps[-1] - stamps[0]) / (len(stamps) - 1))
+        requests.append((evs[-1][1]["request_id"], ttft[-1]))
     if [len(t) for t in tokens] != [n_tokens] * len(prompts):
         raise AssertionError(f"token counts {[len(t) for t in tokens]}")
     ttft.sort()
     return tokens, {
         "tokens_per_s": sum(map(len, tokens)) / wall, "wall_s": wall,
         "ttft_median_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
-        "itl_mean_s": float(np.mean(gaps))}
+        "itl_mean_s": float(np.mean(gaps)), "requests": requests}
 
 
 def serve_deployment(card_label, ref):
@@ -1268,6 +1306,12 @@ def serve_deployment(card_label, ref):
             if gap >= NEAR_TIE:
                 raise AssertionError(f"request {i} differs at token {pos} "
                                      f"with a logit gap of {gap:.3e}")
+        # 6o (a): the state API, the critical path and the dashboard read
+        # this path's requests
+        observed = observe_serving(
+            engine_kwargs["engine_name"],
+            [cold.pop("requests"), warm.pop("requests")], n_tokens,
+            card_label)
         http_line = "HTTP SSE left out: aiohttp is not installed here"
         if importlib.util.find_spec("aiohttp") is not None:
             port = rt_serve.start(http_port=0)
@@ -1324,8 +1368,314 @@ def serve_deployment(card_label, ref):
     return launches, {
         "first_round": cold, "second_round": warm, "start_s": start_s,
         "per_token_ms": per_token_ms, "identical": same,
-        "pci_bus_id": proc["pci_bus_id"],
+        "pci_bus_id": proc["pci_bus_id"], "observed": observed,
         "phase_s": time.perf_counter() - t_phase}
+
+
+# ------------------------------------------------------------- phase 6o
+OBS_FOREIGN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+# the bars of tests/test_critical_path.py: a request's buckets sum to its
+# TTFT within 5 % (:245); a step's bucket mass is its critical stage's wall
+# within 5e-6 s (:203), its bubble fraction within 0.15 of that stage's
+# BubbleClock (:207)
+OBS_TTFT_RTOL, OBS_MASS_ATOL, OBS_BUBBLE_ATOL = 0.05, 5e-6, 0.15
+# (b) reads this step of 6m's two-stage fit (steps 0-9: one after the
+# first), and prints the others' critical stages beside it
+OBS_STEP = 5
+# what PERF.md predicted before the phase first ran on the card
+OBS_PREDICTION = (
+    "(a) 16 requests and 512 tokens in summarize_llm; every request's "
+    "buckets sum to its TTFT exactly (rounding); the engine's TTFT 2-15 ms "
+    "under the driver's (the handle, the replica and the next_output "
+    "poll), within 5 % in the warm round and not in the cold one; the "
+    "dashboard process up in 2-5 s with no CUDA, JAX or ray_tpu; (b) stage "
+    "1 critical, bucket mass exact, bubble fraction within 0.01 of its "
+    "BubbleClock; (c) session_start and session_get_next on the fit's path, "
+    "the path its wall within 1 ms; 6o 5-15 s in all")
+# the dashboard process's facts, on SIGUSR2, from a sitecustomize that
+# python loads at its start (so the command stays ``python -m
+# ray_tpu_torch.dashboard``)
+_DASH_FACTS = '''import json, os, signal, sys
+
+
+def _facts(signum, frame):
+    torch = sys.modules.get("torch")
+    path = os.environ["SMOKE_DASH_FACTS"]
+    with open(path + ".tmp", "w") as fh:
+        json.dump({"pid": os.getpid(),
+                   "packages": sorted({m.split(".")[0]
+                                       for m in list(sys.modules)}),
+                   "cuda_initialized": bool(
+                       torch is not None and torch.cuda.is_initialized())},
+                  fh)
+    os.replace(path + ".tmp", path)
+
+
+signal.signal(signal.SIGUSR2, _facts)
+'''
+
+
+def _poll(fn, what, timeout=60.0):
+    """``fn()`` until it returns something true (a ``ValueError``, as
+    ``critical_path`` raises before its rows land, counts as not yet);
+    raises naming ``what`` at the deadline."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        try:
+            last = fn()
+        except ValueError as err:
+            last = err
+        else:
+            if last:
+                return last
+        time.sleep(0.5)
+    raise AssertionError(f"{what} never arrived within {timeout} s: "
+                         f"{last!r}")
+
+
+def _dashboard_process(tmp):
+    """``python -m ray_tpu_torch.dashboard --address <the GCS> --port 0``
+    against this driver's runtime: (the process, its port, its start s)."""
+    from ray_tpu_torch._private.worker import require_core
+
+    host, port = require_core()._gcs_addr
+    with open(os.path.join(tmp, "sitecustomize.py"), "w") as fh:
+        fh.write(_DASH_FACTS)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, SMOKE_DASH_FACTS=os.path.join(tmp, "facts.json"),
+               PYTHONPATH=os.pathsep.join(
+                   [tmp, here] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.dashboard", "--address",
+         f"{host}:{port}", "--port", "0"], cwd=here, env=env,
+        stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line.startswith("DASHBOARD_PORT "):
+        proc.kill()
+        raise AssertionError(f"the dashboard printed {line!r}")
+    return proc, int(line.split()[1]), time.perf_counter() - t0
+
+
+def _dashboard_facts(proc, tmp) -> dict:
+    """What the dashboard process has loaded, and whether CUDA is up in
+    it, by its own report."""
+    import signal
+
+    path = os.path.join(tmp, "facts.json")
+    proc.send_signal(signal.SIGUSR2)
+    _poll(lambda: os.path.exists(path), "the dashboard's facts", 30)
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _http_json(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def observe_serving(engine, rounds, n_tokens, card_label) -> dict:
+    """6o (a), on 5s's runtime after its two rounds: the state API's LLM
+    view holds the engine's requests and tokens; each streamed request's
+    critical path sums to its TTFT, which stands beside the driver's; the
+    dashboard, a process of its own, answers ``/api/llm`` and
+    ``/api/critical_path`` with the same numbers and starts no CUDA."""
+    import tempfile
+
+    from ray_tpu_torch.util import state
+
+    print(f"[obs-6o] prediction (PERF.md §6): {OBS_PREDICTION}", flush=True)
+    t0 = time.perf_counter()
+    requests = [r for rnd in rounds for r in rnd]
+    n_req = len(requests)
+
+    def llm_view():
+        row = state.summarize_llm().get(engine, {})
+        return row if row.get("requests") == n_req and \
+            row.get("generated_tokens") == n_req * n_tokens else None
+
+    # the engine's series reach the nodelet on a push interval
+    llm = _poll(llm_view, f"the LLM view of {n_req} requests")
+    paths, lines, ttft_rel = {}, [], []
+    for i, (rid, driver_ttft) in enumerate(requests):
+        out = _poll(lambda: state.critical_path(request_id=rid),
+                    f"request {rid}'s critical path")
+        mass = sum(out["buckets"].values())
+        if abs(mass - out["ttft_s"]) > OBS_TTFT_RTOL * out["ttft_s"]:
+            raise AssertionError(f"request {rid}: buckets {out['buckets']} "
+                                 f"sum to {mass}, TTFT {out['ttft_s']}")
+        gap = driver_ttft - out["ttft_s"]
+        ttft_rel.append(abs(gap) / driver_ttft)
+        paths[rid] = out
+        lines.append(f"r{i // len(rounds[0])}.{i % len(rounds[0])} "
+                     f"ttft_s={out['ttft_s']:.6f} driver={driver_ttft:.6f} "
+                     f"gap={gap * 1e3:.3f}ms rel={ttft_rel[-1]:.4f} "
+                     f"buckets_sum={mass:.6f} queue="
+                     f"{out['buckets']['queue']:.6f} exec="
+                     f"{out['buckets']['exec']:.6f} admission="
+                     f"{out['buckets']['admission-wait']:.6f}")
+    tmp = tempfile.mkdtemp(prefix="smoke_dash_")
+    proc, port, start_s = _dashboard_process(tmp)
+    try:
+        dash_llm = _http_json(port, "/api/llm").get(engine, {})
+        if (dash_llm.get("requests"), dash_llm.get("generated_tokens")) != \
+                (llm["requests"], llm["generated_tokens"]):
+            raise AssertionError(f"/api/llm {dash_llm} against the state "
+                                 f"API's {llm}")
+        for rid, out in paths.items():
+            got = _http_json(port, f"/api/critical_path?request_id={rid}")
+            if (got["ttft_s"], got["buckets"]) != (out["ttft_s"],
+                                                   out["buckets"]):
+                raise AssertionError(f"/api/critical_path for {rid}: {got}"
+                                     f" against the state API's {out}")
+        facts = _dashboard_facts(proc, tmp)
+    finally:
+        proc.kill()
+        proc.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    foreign = [m for m in facts["packages"] if m in OBS_FOREIGN]
+    if facts["cuda_initialized"] or foreign:
+        raise AssertionError(f"the dashboard process started CUDA "
+                             f"({facts['cuda_initialized']}) or loaded "
+                             f"{foreign}")
+    rounds_rel = [ttft_rel[:len(rounds[0])], ttft_rel[len(rounds[0]):]]
+    out = {"requests": n_req, "generated_tokens": llm["generated_tokens"],
+           "ttft_rel_to_driver_max": [max(r) for r in rounds_rel],
+           "ttft_rel_to_driver_median": [float(np.median(r))
+                                         for r in rounds_rel],
+           "dashboard_start_s": start_s,
+           "dashboard_torch_loaded": "torch" in facts["packages"],
+           "s": time.perf_counter() - t0}
+    for line in lines:
+        print(f"[obs-6o] (a) {line}", flush=True)
+    print(f"[obs-6o] (a) summarize_llm()[{engine!r}]: requests "
+          f"{llm['requests']:.0f}, generated tokens "
+          f"{llm['generated_tokens']:.0f} (5s streamed {n_req} x {n_tokens});"
+          f" every request's buckets sum to its TTFT (bar "
+          f"{OBS_TTFT_RTOL:.0%}); the engine's TTFT against the driver's, "
+          f"largest rel gap {out['ttft_rel_to_driver_max']} (cold, warm), "
+          f"median {out['ttft_rel_to_driver_median']}; `python -m "
+          f"ray_tpu_torch.dashboard` up in {start_s:.3f} s, /api/llm and "
+          f"/api/critical_path equal to the state API's for {n_req} "
+          f"requests, CUDA not initialised there, jax or ray_tpu modules "
+          f"{foreign}; {out['s']:.3f} s on {card_label}", flush=True)
+    return out
+
+
+def observe_mpmd(experiment, card_label) -> dict:
+    """6o (b), on 6m's runtime after its two-stage fit: the step's critical
+    path from the stages' stamps, reconciled with the critical stage's
+    BubbleClock; the last stage (``lm_head`` and the loss) the busiest.
+    The critical stage is the one whose stamped wall is the longest
+    (``critical_path.train_step``, the JAX package's rule); both stages'
+    walls span the whole step, so which one that is follows which stage
+    began the step first, and is printed for every step, not held."""
+    from ray_tpu_torch._private import critical_path as cp
+    from ray_tpu_torch.util import state
+
+    t0 = time.perf_counter()
+
+    def step(k):
+        out = state.critical_path(step=k, experiment=experiment)
+        return out if len(out["stages"]) == MPMD_STAGES else None
+
+    out = _poll(lambda: step(OBS_STEP), f"step {OBS_STEP}'s stamps")
+    mass = sum(out["buckets"].values())
+    clock = out["bubble_clock"]
+    bubble_gap = abs(out["bubble_fraction"] - clock["bubble_fraction"])
+    steps = {k: _poll(lambda: step(k), f"step {k}'s stamps")
+             for k in range(1, TRAIN_STEPS)}
+    others = {k: o["critical_stage"] for k, o in steps.items()}
+
+    def busiest(o):
+        return max(o["stages"], key=lambda st: st["buckets"]["exec"])[
+            "stage"]
+    busy = {k: busiest(o) for k, o in steps.items()}
+    print(f"[obs-6o] (b) {cp.render_tree(out)}".replace(
+        "\n", "\n[obs-6o] (b) "), flush=True)
+    print(f"[obs-6o] (b) state.critical_path(step={OBS_STEP}, "
+          f"experiment={experiment!r}): critical stage "
+          f"{out['critical_stage']} (steps 1-{TRAIN_STEPS - 1}: {others}), "
+          f"path {out['path_s']:.6f} s, bucket mass {mass:.6f} s (bar "
+          f"{OBS_MASS_ATOL:.0e} s), its BubbleClock step wall "
+          f"{clock['step_wall_s']} s; bubble fraction "
+          f"{out['bubble_fraction']:.6f} against the clock's "
+          f"{clock['bubble_fraction']} (bar {OBS_BUBBLE_ATOL}) on "
+          f"{card_label}", flush=True)
+    print(f"[obs-6o] (b) the busiest stage (exec bucket) by step: {busy}",
+          flush=True)
+    if set(busy.values()) != {MPMD_STAGES - 1}:
+        raise AssertionError(f"the busiest stage by step is {busy}, not the "
+                             f"last (lm_head and the loss)")
+    if abs(mass - out["path_s"]) > OBS_MASS_ATOL or \
+            bubble_gap >= OBS_BUBBLE_ATOL:
+        raise AssertionError(f"step {OBS_STEP}: bucket mass {mass} against "
+                             f"the wall {out['path_s']}, bubble fraction "
+                             f"{out['bubble_fraction']} against {clock}")
+    return {"step": OBS_STEP, "critical_stage": out["critical_stage"],
+            "critical_by_step": others, "busiest_by_step": busy,
+            "path_s": out["path_s"],
+            "buckets": out["buckets"],
+            "bubble_fraction": out["bubble_fraction"],
+            "bubble_clock": clock, "s": time.perf_counter() - t0}
+
+
+def observe_fit(trace_id, fit_s, card_label) -> dict:
+    """6o (c), on 6g's runtime: the critical path of the trace around its
+    first fit holds the worker's training-loop call and is no longer than
+    the fit; ``export_otlp`` writes the trace with its on-path spans."""
+    import tempfile
+
+    from ray_tpu_torch._private import critical_path as cp
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.tracing import export_otlp
+
+    t0 = time.perf_counter()
+
+    def on_path():
+        out = state.critical_path(trace_id=trace_id)
+        names = {n["name"].rsplit(".", 1)[-1] for n in out["nodes"]
+                 if n["span_id"] in out["on_path_span_ids"]}
+        return out if "session_start" in names else None
+
+    out = _poll(on_path, "the fit's training-loop call on its path")
+    mass = sum(out["buckets"].values())
+    # the trace's clock is time.time(), the fit's perf_counter: 2 ms apart
+    # at most
+    if out["path_s"] > fit_s + 2e-3 or abs(mass - out["path_s"]) > \
+            OBS_MASS_ATOL:
+        raise AssertionError(f"the fit's path {out['path_s']} s (buckets "
+                             f"{mass}) against its wall {fit_s} s")
+    fd, path = tempfile.mkstemp(prefix="smoke_otlp_", suffix=".json")
+    os.close(fd)
+    try:
+        n_spans = export_otlp(path, trace_id=trace_id)
+        with open(path) as fh:
+            spans = json.load(fh)["resourceSpans"][0]["scopeSpans"][0][
+                "spans"]
+    finally:
+        os.unlink(path)
+    tagged = [s["name"] for s in spans if any(
+        a["key"] == "ray_tpu_torch.on_critical_path"
+        for a in s["attributes"])]
+    if not tagged or n_spans != len(spans):
+        raise AssertionError(f"export_otlp wrote {n_spans} spans, "
+                             f"{len(spans)} read back, on the path {tagged}")
+    print(f"[obs-6o] (c) {cp.render_tree(out)}".replace(
+        "\n", "\n[obs-6o] (c) "), flush=True)
+    print(f"[obs-6o] (c) the trace around 6g's first fit: path "
+          f"{out['path_s']:.6f} s of the fit's {fit_s:.6f} s, "
+          f"{len(out['on_path_span_ids'])} spans on it; export_otlp wrote "
+          f"{n_spans} spans, {len(tagged)} tagged on_critical_path "
+          f"{sorted(set(tagged))} on {card_label}", flush=True)
+    return {"path_s": out["path_s"], "fit_s": fit_s,
+            "buckets": out["buckets"], "spans": n_spans,
+            "on_path_spans": len(tagged), "s": time.perf_counter() - t0}
 
 
 # ------------------------------------------------------------- phase 6
@@ -2670,6 +3020,7 @@ def runtime_train(card_label, ref):
         ScalingConfig,
         TorchTrainer,
     )
+    from ray_tpu_torch.util.tracing import trace_span
 
     t0 = t_phase = time.perf_counter()
     rt.init(ignore_reinit_error=True)
@@ -2707,10 +3058,17 @@ def runtime_train(card_label, ref):
                     name=f"smoke-{name}", storage_path=storage,
                     failure_config=FailureConfig(max_failures=int(fail))))
             t0 = time.perf_counter()
-            result = trainer.fit()
+            if fail:
+                result = trainer.fit()
+            else:
+                # 6o (c): the first fit inside a span of its own
+                with trace_span("smoke-6g-fit") as span:
+                    result = trainer.fit()
+                trace_id = span.trace_id
             runs[name] = (result, time.perf_counter() - t0)
     finally:
         shutil.rmtree(storage, ignore_errors=True)
+    observed = observe_fit(trace_id, runs["plain"][1], card_label)
     result, fit_s = runs["plain"]
     hist = result.metrics_history
     last = result.metrics
@@ -2785,7 +3143,7 @@ def runtime_train(card_label, ref):
         "param_bytes": nbytes, "card": last["card"],
         "pci_bus_id": last["pci_bus_id"], "builds": last["builds"],
         "resumed_last_loss": rhist[-1]["loss"], "resumed_fit_s": resumed_s,
-        "phase_s": phase_s,
+        "observed": observed, "phase_s": phase_s,
         "resources": resources}, params_ref
 
 
@@ -3555,6 +3913,8 @@ def mpmd_train(card_label) -> tuple:
         if not all(np.isfinite(losses2)) or not losses2[-1] < losses2[0]:
             raise AssertionError(f"two-stage losses not finite and falling: "
                                  f"{losses2}")
+        # 6o (b): the step's critical path from the stages' stamps
+        observed = observe_mpmd("smoke-mpmd2", card_label)
         hist1, fit1_s = _mpmd_fit(_mpmd_config("smoke-mpmd1"), 1, 1, 0.5,
                                   "smoke-mpmd1")
         one = _stage_line(0, hist1[0], {
@@ -3609,7 +3969,7 @@ def mpmd_train(card_label) -> tuple:
         "stages": stages, "one_stage": one, "losses": losses2,
         "one_stage_losses": losses1, "max_rel_to_one_stage": rel,
         "theoretical_bubble_fraction": theory, "f32_step": f32,
-        "fit_s": fit2_s, "one_stage_fit_s": fit1_s,
+        "fit_s": fit2_s, "one_stage_fit_s": fit1_s, "observed": observed,
         "phase_s": time.perf_counter() - t_phase}
 
 
@@ -4197,6 +4557,301 @@ def rl_runner_threads() -> dict:
     return {str(k): v for k, v in out.items()}
 
 
+# (e) DQN and (f) SAC: tests/test_rllib.py:236-244's and :377-389's
+# configurations with their updates on the card
+RL_DQN_STEPS, RL_DQN_ITERS = 640_000, 5000
+RL_SAC_ITERS, RL_SAC_STEPS, RL_SAC_EVAL, RL_SAC_ALPHA = 45, 20_000, -400.0, 0.9
+# the card's update against the CPU's, f32 with TF32 off
+RL_DQN_RTOL, RL_SAC_LOSS_RTOL, RL_SAC_RTOL = 1e-5, 1e-5, 1e-4
+RL_SAC_MINIBATCHES = 4
+RL_OFFPOLICY_PREDICTION = (
+    "(e) DQN 350 at 150k-300k env steps (the CPU's seed 1: 192,384), "
+    "1200-2400 iterations, the update (13 minibatches of 128) 8-20 ms at "
+    "the median, a fragment 2-6 ms on the host, 30-70 s; the card against "
+    "the CPU 1e-7-1e-6; (f) SAC's update (512 minibatches of 256) 0.8-1.6 "
+    "s, eval -100 to -250, alpha 0.02-0.1, 45-90 s; the card against the "
+    "CPU, losses 1e-7, after 4 minibatches 1e-6")
+
+
+def _state_rel(got, want) -> float:
+    """The largest rel error of a module state's tensors, each against its
+    own largest magnitude."""
+    return max(float((got[k].cpu() - v).abs().max()
+                     / max(float(v.abs().max()), 1e-30))
+               for k, v in want.items())
+
+
+def _runner_facts(runner_cls, kwargs, sample_args) -> dict:
+    """One runner of ``runner_cls`` as an actor: a fragment, then its
+    process facts (CUDA never up, no JAX-package module)."""
+    import ray_tpu_torch as rt
+
+    actor = rt.remote(runner_cls).options(num_cpus=1).remote(**kwargs)
+    try:
+        batch = rt.get(actor.sample.remote(*sample_args), timeout=120)
+        facts = rt.get(actor.process_facts.remote(), timeout=60)
+    finally:
+        rt.kill(actor)
+    if facts["cuda_initialized"] or _rl_foreign(facts):
+        raise AssertionError(f"a {runner_cls.__name__} actor started CUDA or"
+                             f" loaded {_rl_foreign(facts)}")
+    return {"rows": len(batch["rewards"]), "pid": facts["pid"]}
+
+
+def _timed_sampler(runner, times):
+    """``runner.sample`` recording each fragment's host ms in ``times``."""
+    sample = runner.sample
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = sample(*args, **kw)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+    runner.sample = timed
+
+
+def _dqn_card_vs_cpu(algo) -> dict:
+    """One ``_dqn_update`` at the default U and B on the card against the
+    CPU, from the trained parameters and a batch of its buffer, tau 0: the
+    losses and parameters within RL_DQN_RTOL, the target the parameters
+    from before the update bit for bit."""
+    import functools
+
+    from ray_tpu_torch.rllib.algorithms.dqn import (_dqn_update,
+                                                    batch_to_device,
+                                                    dqn_minibatch)
+    from ray_tpu_torch.rllib.core.learner import CudaGraphStep, make_optimizer
+    from ray_tpu_torch.rllib.core.rl_module import QModule
+
+    p = algo.config.training_params
+    state = algo.module.state()
+    batch = algo.buffer.gather(algo.buffer.sample_indices(
+        p["num_updates_per_iter"], p["train_batch_size"]))
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        module = QModule(4, 2, dueling=p["dueling"]).to(dev)
+        module.load_state(state)
+        target = QModule(4, 2, dueling=p["dueling"]).to(dev)
+        target.requires_grad_(False)
+        target.load_state(state)
+        params = [q for _, q in module.named_params()]
+        card = dev != "cpu"
+        # the path the training took: on the card a CUDA graph a minibatch
+        step = functools.partial(
+            dqn_minibatch, module, target, params,
+            make_optimizer(params, p["lr"], capturable=card),
+            double_q=p["double_q"], tau=p["tau"], use_huber=p["use_huber"],
+            grad_clip=p["grad_clip"])
+        stats = _dqn_update(CudaGraphStep(step) if card else step,
+                            batch_to_device(batch, torch.device(dev)))
+        out[dev] = ({k: v.cpu() for k, v in stats.items()}, module.state(),
+                    target.state())
+    (s_c, m_c, t_c), (s_h, m_h, _) = out["cuda:0"], out["cpu"]
+    loss_rel = float(((s_c["total_loss"] - s_h["total_loss"]).abs()
+                      / s_h["total_loss"].abs()).max())
+    param_rel = _state_rel(m_c, m_h)
+    target_equal = all(torch.equal(t_c[k], state[k]) for k in state)
+    if loss_rel > RL_DQN_RTOL or param_rel > RL_DQN_RTOL or \
+            not target_equal:
+        raise AssertionError(f"DQN's update on the card against the CPU: "
+                             f"losses {loss_rel}, parameters {param_rel}, "
+                             f"target unchanged {target_equal}")
+    return {"minibatches": int(s_h["total_loss"].numel()),
+            "loss_rel": loss_rel, "param_rel": param_rel,
+            "target_bit_equal": target_equal}
+
+
+def rl_dqn(card_label) -> dict:
+    """(e) DQN at tests/test_rllib.py:236-244's configuration (CartPole-v1,
+    the runner in the driver, seed 1), the update on the card: 350 within
+    RL_DQN_STEPS env steps; then one update on the card against the CPU."""
+    from ray_tpu_torch.rllib import DQNConfig
+    from ray_tpu_torch.rllib.algorithms.dqn import QEnvRunner
+
+    algo = (DQNConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=0).debugging(seed=1)).build()
+    sample_ms = []
+    _timed_sampler(algo._local_runner, sample_ms)
+    t0 = time.perf_counter()
+    best, result, iters = -np.inf, None, 0
+    for _ in range(RL_DQN_ITERS):
+        result = algo.train()
+        iters += 1
+        ret = result["episode_return_mean"]
+        if np.isfinite(ret):
+            best = max(best, ret)
+        if ret >= RL_RETURN:
+            break
+    wall = time.perf_counter() - t0
+    steps = result["num_env_steps_sampled_lifetime"]
+    if best < RL_RETURN or steps > RL_DQN_STEPS:
+        raise AssertionError(f"DQN did not reach {RL_RETURN} within "
+                             f"{RL_DQN_STEPS} env steps: best {best} at "
+                             f"{steps}")
+    device = str(algo.device)
+    runner_dev = {str(q.device) for q in
+                  algo._local_runner.module.parameters()}
+    driver_foreign = sorted({m.split(".")[0] for m in sys.modules
+                             if m.split(".")[0] in RL_FOREIGN})
+    if device != "cuda:0" or runner_dev != {"cpu"} or driver_foreign:
+        raise AssertionError(f"DQN's update ran on {device}, its runner's "
+                             f"Q-network on {runner_dev}; the driver "
+                             f"loaded {driver_foreign}")
+    update_ms = algo.update_times()
+    spec = {"observation_size": 4, "num_actions": 2, "hidden": (64, 64),
+            "dueling": True}
+    actor = _runner_facts(QEnvRunner, dict(
+        env_name="CartPole-v1", num_envs=16, rollout_length=8,
+        module_spec=spec, seed=1), (algo.module.state(), 0.05))
+    parity = _dqn_card_vs_cpu(algo)
+    out = {"iterations": iters, "env_steps": steps, "return_mean":
+           result["episode_return_mean"], "wall_s": wall,
+           "updates": len(update_ms),
+           "update_ms_median": float(np.median(update_ms)),
+           "update_ms_min": float(np.min(update_ms)),
+           "fragment_ms_median": float(np.median(sample_ms)),
+           "learner_device": device, "runner_actor": actor,
+           "card_vs_cpu": parity}
+    print(f"[rl] (e) DQN CartPole-v1 (tests/test_rllib.py:236, seed 1), "
+          f"the runner in the driver (16 envs x 8 steps, its Q-network on "
+          f"the CPU), the update on {device}: return "
+          f"{out['return_mean']:.2f} >= {RL_RETURN} after {iters} "
+          f"iterations, {steps} env steps (bar {RL_DQN_STEPS}), {wall:.3f} "
+          f"s; the update {out['update_ms_median']:.3f} ms at the median "
+          f"(CUDA events, min {out['update_ms_min']:.3f}, {len(update_ms)} "
+          f"updates of 13 x 128), a fragment {out['fragment_ms_median']:.3f}"
+          f" ms (host); a QEnvRunner actor: CUDA never initialised, no "
+          f"jax/optax/ray_tpu module; one update on the card against the "
+          f"CPU ({parity['minibatches']} minibatches, TF32 off): losses rel "
+          f"{parity['loss_rel']:.3e}, parameters {parity['param_rel']:.3e} "
+          f"(bar {RL_DQN_RTOL}), the target bit for bit the parameters "
+          f"before it: {parity['target_bit_equal']} on {card_label}",
+          flush=True)
+    return out
+
+
+def _sac_card_vs_cpu(algo) -> dict:
+    """RL_SAC_MINIBATCHES minibatches of ``_sac_update`` on the card
+    against the CPU, from the trained parameters, a batch of the buffer and
+    the same noise: the first minibatch's losses within RL_SAC_LOSS_RTOL,
+    then the parameters, ``target_q`` and alpha within RL_SAC_RTOL."""
+    import functools
+
+    from ray_tpu_torch.rllib.algorithms.dqn import batch_to_device
+    from ray_tpu_torch.rllib.algorithms.sac import (_sac_update, sac_losses,
+                                                    sac_minibatch)
+    from ray_tpu_torch.rllib.core.learner import CudaGraphStep, make_optimizer
+    from ray_tpu_torch.rllib.core.rl_module import (SquashedGaussianModule,
+                                                    TwinQModule)
+
+    p = algo.config.training_params
+    bs = p["batch_size"]
+    batch = algo.buffer.gather(algo.buffer.sample_indices(
+        RL_SAC_MINIBATCHES, bs))
+    noise = torch.randn((RL_SAC_MINIBATCHES, 2, bs, 1),
+                        generator=torch.Generator().manual_seed(5))
+    states = (algo.actor.state(), algo.critic.state(),
+              algo.target_q.state(), algo.log_alpha.detach().cpu())
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        actor = SquashedGaussianModule(3, 1, 2.0).to(dev)
+        critic = TwinQModule(3, 1).to(dev)
+        target = TwinQModule(3, 1).to(dev)
+        target.requires_grad_(False)
+        for m, st in zip((actor, critic, target), states):
+            m.load_state(st)
+        log_alpha = torch.nn.Parameter(states[3].clone().to(dev))
+        params = ([q for _, q in actor.named_params()]
+                  + [q for _, q in critic.named_params()] + [log_alpha])
+        mbs = batch_to_device(batch, torch.device(dev))
+        eps = noise.to(dev)
+        # no autograd here: a parameter's first backward use must be in
+        # the update (CudaGraphStep)
+        with torch.no_grad():
+            _, c_l, a_l, _ = sac_losses(actor, critic, target, log_alpha,
+                                        {k: v[0] for k, v in mbs.items()},
+                                        eps[0, 0], eps[0, 1],
+                                        algo.update_kw["target_entropy"])
+        first = torch.stack([c_l, a_l]).cpu()
+        card = dev != "cpu"
+        # the path the training took: on the card a CUDA graph a minibatch
+        step = functools.partial(
+            sac_minibatch, actor, critic, target, log_alpha, params,
+            make_optimizer(params, p["lr"], capturable=card),
+            **algo.update_kw)
+        _, _, alpha = _sac_update(CudaGraphStep(step) if card else step,
+                                  mbs, eps)
+        out[dev] = (first, actor.state(), critic.state(), target.state(),
+                    float(alpha))
+    card, host = out["cuda:0"], out["cpu"]
+    loss_rel = float(((card[0] - host[0]).abs() / host[0].abs()).max())
+    rel = {"actor": _state_rel(card[1], host[1]),
+           "critic": _state_rel(card[2], host[2]),
+           "target_q": _state_rel(card[3], host[3]),
+           "alpha": abs(card[4] - host[4]) / abs(host[4])}
+    if loss_rel > RL_SAC_LOSS_RTOL or max(rel.values()) > RL_SAC_RTOL:
+        raise AssertionError(f"SAC's update on the card against the CPU: "
+                             f"first losses {loss_rel}, after "
+                             f"{RL_SAC_MINIBATCHES} minibatches {rel}")
+    return {"first_loss_rel": loss_rel, **rel}
+
+
+def rl_sac(card_label) -> dict:
+    """(f) SAC at tests/test_rllib.py:377-389's configuration (Pendulum-v1,
+    seed 0) for RL_SAC_ITERS iterations, the update on the card: the
+    test's bars; then the update on the card against the CPU."""
+    from ray_tpu_torch.rllib import SACConfig
+    from ray_tpu_torch.rllib.algorithms.sac import SACEnvRunner
+
+    algo = (SACConfig().environment("Pendulum-v1").debugging(seed=0)).build()
+    sample_ms = []
+    _timed_sampler(algo._local_runner, sample_ms)
+    t0 = time.perf_counter()
+    for _ in range(RL_SAC_ITERS):
+        out = algo.train()
+    wall = time.perf_counter() - t0
+    ev = algo.evaluate(n_episodes=5)["episode_return_mean"]
+    device = str(algo.device)
+    update_ms = algo.update_times()
+    if out["steps_sampled"] < RL_SAC_STEPS or ev < RL_SAC_EVAL or \
+            out["alpha"] >= RL_SAC_ALPHA or device != "cuda:0":
+        raise AssertionError(f"SAC on {device}: {out['steps_sampled']} env "
+                             f"steps, greedy return {ev}, alpha "
+                             f"{out['alpha']}")
+    spec = {"observation_size": 3, "action_size": 1, "max_action": 2.0,
+            "hidden": (64, 64)}
+    actor = _runner_facts(SACEnvRunner, dict(
+        env_name="Pendulum-v1", num_envs=8, rollout_length=64,
+        module_spec=spec, seed=0), (algo.actor.state(), False))
+    parity = _sac_card_vs_cpu(algo)
+    res = {"iterations": RL_SAC_ITERS, "env_steps": out["steps_sampled"],
+           "eval_return": ev, "alpha": out["alpha"], "wall_s": wall,
+           "updates": len(update_ms),
+           "update_ms_median": float(np.median(update_ms)),
+           "update_ms_min": float(np.min(update_ms)),
+           "fragment_ms_median": float(np.median(sample_ms)),
+           "learner_device": device, "runner_actor": actor,
+           "card_vs_cpu": parity}
+    print(f"[rl] (f) SAC Pendulum-v1 (tests/test_rllib.py:377, seed 0), "
+          f"the runner in the driver (8 envs x 64 steps, its actor on the "
+          f"CPU), the update on {device}: {RL_SAC_ITERS} iterations, "
+          f"{out['steps_sampled']} env steps (bar {RL_SAC_STEPS}), greedy "
+          f"evaluate(5) {ev:.2f} (bar {RL_SAC_EVAL}), alpha "
+          f"{out['alpha']:.4f} (bar < {RL_SAC_ALPHA}), {wall:.3f} s; the "
+          f"update {res['update_ms_median']:.3f} ms at the median (CUDA "
+          f"events, min {res['update_ms_min']:.3f}, {len(update_ms)} "
+          f"updates of 512 x 256), a fragment "
+          f"{res['fragment_ms_median']:.3f} ms (host); an SACEnvRunner "
+          f"actor: CUDA never initialised, no jax/optax/ray_tpu module; "
+          f"{RL_SAC_MINIBATCHES} minibatches of 256 on the card against "
+          f"the CPU (same noise, TF32 off): the first losses rel "
+          f"{parity['first_loss_rel']:.3e} (bar {RL_SAC_LOSS_RTOL}), then "
+          f"actor {parity['actor']:.3e}, critic {parity['critic']:.3e}, "
+          f"target_q {parity['target_q']:.3e}, alpha {parity['alpha']:.3e} "
+          f"(bar {RL_SAC_RTOL}) on {card_label}", flush=True)
+    return res
+
+
 def rl_train(card_label) -> tuple:
     """Phase 6r: PPO and IMPALA learn CartPole with their learners on the
     card, and the LLM policy pool answers runners through Serve on the
@@ -4208,23 +4863,30 @@ def rl_train(card_label) -> tuple:
 
     t_phase = time.perf_counter()
     print(f"[rl] prediction (PERF.md §6): {RL_PREDICTION}", flush=True)
+    print(f"[rl] prediction for (e) and (f) (PERF.md §6): "
+          f"{RL_OFFPOLICY_PREDICTION}", flush=True)
     out, failed = {}, []
-    launches = {"rl": None, "rl_llm_pool": None}
+    launches = {"rl": None, "rl_offpolicy": None, "rl_llm_pool": None}
     out["runner_threads"] = rl_runner_threads()
     rt.init(ignore_reinit_error=True)
     session_dir = worker_mod.global_worker().node.session_dir
     try:
-        # the MLP paths: PPO's and IMPALA's learners run no attention
-        _zero_counts()
-        for part, fn in (("ppo", lambda: rl_ppo(card_label)),
-                         ("learner_parity", rl_learner_parity),
-                         ("impala", lambda: rl_impala(card_label))):
-            try:
-                out[part] = fn()
-            except Exception as err:
-                failed.append(f"{part}: {err!r}")
-                print(f"[rl] {part}: FAILED: {err!r}", flush=True)
-        launches["rl"] = _read_counts()
+        # the MLP paths: PPO's, IMPALA's, then DQN's and SAC's learners run
+        # no attention
+        for path, parts in (
+                ("rl", (("ppo", lambda: rl_ppo(card_label)),
+                        ("learner_parity", rl_learner_parity),
+                        ("impala", lambda: rl_impala(card_label)))),
+                ("rl_offpolicy", (("dqn", lambda: rl_dqn(card_label)),
+                                  ("sac", lambda: rl_sac(card_label))))):
+            _zero_counts()
+            for part, fn in parts:
+                try:
+                    out[part] = fn()
+                except Exception as err:
+                    failed.append(f"{part}: {err!r}")
+                    print(f"[rl] {part}: FAILED: {err!r}", flush=True)
+            launches[path] = _read_counts()
         try:
             launches["rl_llm_pool"], out["llm_pool"] = rl_llm_pool(card_label)
         except Exception as err:
@@ -4239,9 +4901,10 @@ def rl_train(card_label) -> tuple:
         time.sleep(0.2)
     if left:
         failed.append(f"port processes left after shutdown: {left}")
-    if any(launches["rl"].values()):
-        failed.append(f"the RL learners' paths launched attention kernels: "
-                      f"{launches['rl']}")
+    for path in ("rl", "rl_offpolicy"):
+        if any(launches[path].values()):
+            failed.append(f"the RL learners' path {path} launched attention "
+                          f"kernels: {launches[path]}")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[rl] the phase {out['phase_s']:.3f} s on {card_label}; no port "
           f"process left: {not left}", flush=True)

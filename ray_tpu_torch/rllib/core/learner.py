@@ -43,12 +43,58 @@ def batch_to(batch: Dict[str, Any], device: torch.device
             for k, v in batch.items() if k in _BATCH_DTYPES}
 
 
-def make_optimizer(params: List[torch.Tensor], lr: float
-                   ) -> torch.optim.Adam:
+def make_optimizer(params: List[torch.Tensor], lr: float,
+                   capturable: bool = False) -> torch.optim.Adam:
     """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 outside the square
     root, bias-corrected, which is ``torch.optim.Adam``'s formula; the
-    foreach path pinned, so that replicas step with the same kernels."""
-    return torch.optim.Adam(params, lr=lr, foreach=True)
+    foreach path pinned, so that replicas step with the same kernels.
+    ``capturable`` keeps the step counts on the card, as a CUDA graph
+    (``CudaGraphStep``) needs."""
+    return torch.optim.Adam(params, lr=lr, foreach=True,
+                            capturable=capturable)
+
+
+class CudaGraphStep:
+    """``fn(inputs) -> tensor``, one minibatch's update on the card, as
+    one CUDA graph.  The first ``WARMUP`` calls run ``fn`` eagerly on a side
+    stream (the optimizer's state and the autograd engine come up there,
+    as a capture needs); the next call captures ``fn`` on static copies of
+    its inputs, and from then on each call copies its inputs into those
+    and replays.  ``fn`` must not wait for the card, its optimizer must be
+    capturable, and every tensor it reads besides its inputs must keep its
+    storage (parameters changed in place).  The parameters' first backward
+    must be in here: autograd ties a leaf's gradient accumulator to the
+    stream it was made on, and a capture may not wait on the default
+    stream.  Each call returns a tensor of its own."""
+
+    WARMUP = 3  # eager calls before the capture, as torch's examples take
+
+    def __init__(self, fn):
+        self.fn = fn
+        self._calls = 0
+        self._graph = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._out: Optional[torch.Tensor] = None
+        self._side = torch.cuda.Stream()
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self._graph is None and self._calls < self.WARMUP:
+            self._calls += 1
+            self._side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._side):
+                out = self.fn(inputs)
+            torch.cuda.current_stream().wait_stream(self._side)
+            return out
+        if self._graph is None:
+            self._static = {k: v.clone() for k, v in inputs.items()}
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph):
+                self._out = self.fn(self._static)
+        else:
+            for k, v in inputs.items():
+                self._static[k].copy_(v)
+        self._graph.replay()
+        return self._out.clone()
 
 
 def apply_grads(optimizer: torch.optim.Optimizer,

@@ -283,6 +283,10 @@ class TwinQModule(_RLModule):
         return (_apply_relu_mlp(self.q1, x)[..., 0],
                 _apply_relu_mlp(self.q2, x)[..., 0])
 
+    # ``torch.func.functional_call`` calls a module: SAC's actor loss runs
+    # the critics on parameters it stops (``sac._frozen_q``)
+    forward = q_values
+
 
 def process_facts(device=None) -> Dict:
     """What an RL process runs on: its device, whether CUDA is up in it,

@@ -157,10 +157,13 @@ def _setup_torch_distributed(rank: int, world_size: int, local_rank: int,
     import torch
     import torch.distributed as dist
 
-    os.environ.update(
-        RANK=str(rank), WORLD_SIZE=str(world_size),
-        LOCAL_RANK=str(local_rank), LOCAL_WORLD_SIZE=str(local_world_size),
-        MASTER_ADDR=master_addr, MASTER_PORT=str(master_port))
+    # a dict, not keywords: the wire-contract extractor reads a top-level
+    # function's ``.update(name=...)`` as a table of RPC handlers
+    os.environ.update({
+        "RANK": str(rank), "WORLD_SIZE": str(world_size),
+        "LOCAL_RANK": str(local_rank),
+        "LOCAL_WORLD_SIZE": str(local_world_size),
+        "MASTER_ADDR": master_addr, "MASTER_PORT": str(master_port)})
     index = bus_id = None
     if cards is not None:
         # CUDA reads the variable once, when it starts

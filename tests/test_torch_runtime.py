@@ -74,7 +74,12 @@ rllib/podracer/stream.py
 data/_executor.py data/_logical.py data/_metrics.py data/aggregate.py
 data/datasource.py data/read_api.py
 tune/search.py tune/schedulers.py tune/session.py tune/_trial_coordinator.py
-tune/tuner.py""".split()
+tune/tuner.py
+_private/taskfold.py _private/critical_path.py util/tracing.py util/metrics.py
+_lint/__init__.py _lint/core.py _lint/wire_contract.py util/state.py
+dashboard/__init__.py dashboard/__main__.py
+util/actor_pool.py util/queue.py util/multiprocessing.py util/joblib.py
+workflow/__init__.py cluster_utils.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -468,23 +473,9 @@ RLLIB_IMPALA = [
     ("# so the jitted update compiles ONCE (a variable-width concat would\n",
      "# so the update keeps ONE shape (a variable-width concat would\n")]
 RLLIB_EXPORTS = [
-    ("EnvRunner actors sample on CPU, a JAX Learner updates on device, the\n"
-     "Algorithm is the Tune-trainable driver loop).\n",
+    ("EnvRunner actors sample on CPU, a JAX Learner updates on device, the\n",
      "EnvRunner actors sample on CPU, a torch Learner updates on the card, "
-     "the\nAlgorithm is the Tune-trainable driver loop).  DQN and SAC wait "
-     "for\nROADMAP.md A5b.\n"),
-    ("from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig\n", ""),
-    ("from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig\n", ""),
-    ("""__all__ = ["Algorithm", "AlgorithmConfig", "BC", "BCConfig",
-           "DQN", "DQNConfig", "FragmentStream", "IMPALA", "IMPALAConfig",
-           "InferencePool", "LearnerGang", "MARWIL", "MARWILConfig",
-           "PPO", "PPOConfig", "PodracerLearner", "SAC", "SACConfig",
-           "WeightMailbox"]
-""", """__all__ = ["Algorithm", "AlgorithmConfig", "BC", "BCConfig",
-           "FragmentStream", "IMPALA", "IMPALAConfig", "InferencePool",
-           "LearnerGang", "MARWIL", "MARWILConfig", "PPO", "PPOConfig",
-           "PodracerLearner", "WeightMailbox"]
-""")]
+     "the\n")]
 # Data (data/): the card's hand-off is iter_torch_batches(device=...), which
 # the JAX package already has; iter_jax_batches goes
 DATA_JAX_BATCHES = """    def iter_jax_batches(self, *, batch_size: Optional[int] = 256,
