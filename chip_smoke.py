@@ -59,6 +59,28 @@ Phases, each fatal on failure:
      is installed, one request over HTTP SSE (serve.start) against the
      handle's tokens; serve.shutdown() and ray_tpu_torch.shutdown() leave
      no process of the session;
+  6j. the cluster surface (two main paths, right after 5s, each part on a
+     runtime of its own in a temporary RAY_TPU_TORCH_TMPDIR): (a) `python
+     -m ray_tpu_torch start --head --num-cpus 2` (the node counts its
+     cards itself), `status` showing GPU n/n for the n cards torch sees,
+     a toy wheel built in the temporary directory, and a job submitted
+     through JobSubmissionClient whose script runs one num_gpus=1 task in
+     a pip env (toydep==1.0, offline through --no-index --find-links): the
+     task builds GPT-2-small from seed 0 on its card and answers phase 5's
+     first two prompts, 32 greedy tokens each, which must be phase 5's;
+     the job SUCCEEDED, toydep 1.0 from the venv, flash_fwd launched once
+     per attention call in the task, no combine or backward launch;
+     `stop` leaves no process of the session; the head's start, the
+     venv's build, the job's wall time and the task's tokens/s; (b) a
+     head with GPU 0, a StandardAutoscaler over GPUNodeProvider on
+     FakeGpuCloud with one h100-1 node type ({CPU: 1, GPU: 1}): a pending
+     num_gpus=1 task makes it launch one host, the task sees card 0 alone
+     and prefills phase 5's second prompt through flash_fwd, its last
+     logits within 1e-4 / 1e-3 of plain attention's (GPT2LMModel with
+     reference attention, on the card) and of phase 5's engine's (phase 3
+     holds the kernel at this 600-token prefill); once idle past its
+     3 s timeout the host is terminated and its nodelet gone; the
+     scale-up (submit to the task's start) and reap times;
   6. training (a main path): ShardedPretrainer takes 10 steps of
      GPT-2-small (bf16, flash, no remat) at batch 16 x 1024 on one seeded
      batch; losses finite and falling; every counter set to 0 just before
@@ -393,6 +415,9 @@ ATTN_CASES = [
      True, 0, 0),
     ("pipeline_fused_qkv_f32", torch.float32, 1, 12, 1024, 1024, 64, True,
      0, 0),
+    # phase 6j's autoscaled host: one unchunked prefill of phase 5's
+    # 600-token prompt (its KV splits merged in the launch)
+    ("serve_prefill600_f32", torch.float32, 1, 12, 600, 600, 64, True, 0, 0),
 ]
 FUSED_QKV_CASES = {"gpt2_fused_qkv_bf16", "pipeline_pp2_fused_qkv_bf16",
                    "pipeline_pp4_fused_qkv_bf16", "pipeline_fused_qkv_f32"}
@@ -940,6 +965,9 @@ def ptxas_report(logs) -> dict:
 
 
 # ------------------------------------------------------------- phase 4
+LOGITS_TOL = (1e-4, 1e-3)  # tests/test_llm.py:154
+
+
 def model_forward(params):
     from ray_tpu_torch.llm import GPT2Runner, PagedKVCache
     from ray_tpu_torch.llm.kv_cache import CacheConfig
@@ -957,7 +985,7 @@ def model_forward(params):
         with torch.no_grad():
             logits[impl] = model(ids)[0]
         del model
-    tol = (1e-4, 1e-3)  # tests/test_llm.py:154
+    tol = LOGITS_TOL
     err = _check_close("GPT2LMModel flash vs reference", logits["flash"],
                        logits["reference"], tol)
     print(f"[model] GPT-2-small (1, 512) f32 logits flash vs reference: "
@@ -1131,9 +1159,9 @@ def serve(card_label):
 NEAR_TIE = 1e-4
 
 
-def _top2_gap(core, ids) -> float:
-    """The gap between the two largest next-token logits of ``core``'s
-    model after ``ids``, from a prefill in a cache of its own."""
+def _prefill_logits(core, ids) -> np.ndarray:
+    """The next-token logits of ``core``'s model after ``ids``, from a
+    prefill in a cache of its own."""
     from ray_tpu_torch.llm import CacheConfig, PagedKVCache
 
     cfg = core.config
@@ -1143,8 +1171,13 @@ def _top2_gap(core, ids) -> float:
         head_dim=cfg.n_embd // cfg.n_head,
         num_pages=-(-len(ids) // size), page_size=size), device=core.device)
     cache.reserve("gap", len(ids))
-    top = np.sort(np.asarray(core.runner.prefill("gap", ids, 0, cache),
-                             np.float64))[-2:]
+    return np.asarray(core.runner.prefill("gap", ids, 0, cache), np.float64)
+
+
+def _top2_gap(core, ids) -> float:
+    """The gap between the two largest next-token logits of ``core``'s
+    model after ``ids``."""
+    top = np.sort(_prefill_logits(core, ids))[-2:]
     return float(top[1] - top[0])
 
 
@@ -1163,6 +1196,17 @@ def _port_processes(session_dir: str) -> list:
         if "ray_tpu_torch._private." in args and session_dir in args:
             found.append((int(pid), args.replace("\0", " ").strip()))
     return found
+
+
+def _wait_gone(session_dir, what) -> None:
+    """Fail unless every process of the port's session ``session_dir`` is
+    gone within 30 s."""
+    deadline = time.monotonic() + 30
+    while (left := _port_processes(session_dir)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if left:
+        raise AssertionError(f"port processes left after {what}: {left}")
 
 
 def _stream_round(handle, prompts, n_tokens):
@@ -1337,12 +1381,7 @@ def serve_deployment(card_label, ref):
     finally:
         rt_serve.shutdown()
         rt.shutdown()
-    deadline = time.monotonic() + 30
-    while (left := _port_processes(session_dir)) and \
-            time.monotonic() < deadline:
-        time.sleep(0.2)
-    if left:
-        raise AssertionError(f"port processes left after shutdown: {left}")
+    _wait_gone(session_dir, "shutdown")
     gen = sum(len(t) for t in tokens)
     per_token_ms = (warm["wall_s"] - ref["wall_s"]) / gen * 1e3
 
@@ -1370,6 +1409,379 @@ def serve_deployment(card_label, ref):
         "per_token_ms": per_token_ms, "identical": same,
         "pci_bus_id": proc["pci_bus_id"], "observed": observed,
         "phase_s": time.perf_counter() - t_phase}
+
+
+# ------------------------------------------------------------ phase 6j
+CLUSTER_PROMPTS = 2  # the job answers phase 5's first two prompts
+CLUSTER_PREFILL = 1  # the autoscaled node prefills phase 5's second one
+# the autoscaler's idle timeout, and its launch grace as
+# tests/test_autoscaler.py:166 sets it (a host younger than the grace is
+# not reaped)
+CLUSTER_IDLE_S = 3.0
+CLUSTER_GRACE_S = 5.0
+CLUSTER_TIMEOUT_S = 300
+
+# A user's job: a driver script that connects to the running cluster and
+# runs one task on a card in a pip env (the submitted job's own env applies
+# env_vars and working_dir; a pip env is a task's or an actor's).  The task
+# builds phase 5's engine and counts launches with this script's helpers
+# (the repository is on PYTHONPATH).
+JOB_SCRIPT = '''import json
+import os
+import sys
+import time
+
+import ray_tpu_torch
+
+ray_tpu_torch.init()  # the cluster's address: RAY_TPU_TORCH_ADDRESS
+
+
+@ray_tpu_torch.remote(num_gpus=1, runtime_env={"pip": ["toydep==1.0"]})
+def generate(prompts, max_tokens):
+    started_at = time.time()
+    import toydep
+    import torch
+
+    from chip_smoke import _read_counts, _zero_counts, serving_workload
+    from ray_tpu_torch.llm import SamplingParams
+
+    core = serving_workload()[4]()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    rids = [core.submit(p, SamplingParams(max_tokens=max_tokens))
+            for p in prompts]
+    core.run_until_done(rids)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = _read_counts()
+    core.cache.check_leaks()
+    return {"toydep": toydep.__version__, "python": sys.executable,
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": str(core.device), "launches": launches,
+            "attention_calls": core.runner.attention_calls,
+            "states": [core.result(r)["state"] for r in rids],
+            "tokens": [[int(x) for x in core.result(r)["tokens"]]
+                       for r in rids],
+            "generate_s": generate_s, "started_at": started_at}
+
+
+with open(sys.argv[1]) as f:
+    job = json.load(f)
+submitted_at = time.time()
+out = ray_tpu_torch.get(generate.remote(job["prompts"], job["max_tokens"]),
+                        timeout=job["timeout"])
+out["submitted_at"] = submitted_at
+print("TASK " + json.dumps(out), flush=True)
+ray_tpu_torch.shutdown()
+'''
+
+
+def _toy_wheel(dirpath, name, version) -> str:
+    """A pure-Python wheel of ``name`` ``version`` in ``dirpath`` (for an
+    offline pip env: ``--no-index --find-links``)."""
+    import base64
+    import csv
+    import hashlib
+    import io
+    import zipfile
+
+    os.makedirs(dirpath, exist_ok=True)
+    whl = os.path.join(dirpath, f"{name}-{version}-py3-none-any.whl")
+    info = f"{name}-{version}.dist-info"
+    files = {f"{name}/__init__.py": f'__version__ = "{version}"\n',
+             f"{info}/METADATA": f"Metadata-Version: 2.1\nName: {name}\n"
+                                 f"Version: {version}\n",
+             f"{info}/WHEEL": "Wheel-Version: 1.0\nGenerator: chip-smoke\n"
+                              "Root-Is-Purelib: true\nTag: py3-none-any\n"}
+    buf = io.StringIO()
+    record = csv.writer(buf)
+    with zipfile.ZipFile(whl, "w") as z:
+        for path, content in files.items():
+            data = content.encode()
+            z.writestr(path, data)
+            digest = base64.urlsafe_b64encode(
+                hashlib.sha256(data).digest()).rstrip(b"=").decode()
+            record.writerow((path, f"sha256={digest}", str(len(data))))
+        record.writerow((f"{info}/RECORD", "", ""))
+        z.writestr(f"{info}/RECORD", buf.getvalue())
+    return whl
+
+
+def _cli(env, *args) -> str:
+    """``python -m ray_tpu_torch ARGS`` as a process of its own; its
+    output, or an AssertionError with it."""
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"ray_tpu_torch {' '.join(args)} exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def _check_serving_launches(where, launches, calls) -> None:
+    if not (launches["flash_fwd"] > 0 and launches["flash_fwd"] == calls):
+        raise AssertionError(f"{where}: flash_fwd launches {launches} != "
+                             f"attention calls {calls}")
+    if launches["flash_fwd_combine"] or any(launches[k] for k in BWD_KERNELS):
+        raise AssertionError(f"{where}: combine or backward launches "
+                             f"{launches}")
+
+
+def cluster_job(card_label, ref, tmp) -> tuple:
+    """6j (a): the CLI starts a head (it counts the card itself), ``status``
+    shows its GPU, a job submitted through JobSubmissionClient runs one
+    num_gpus=1 task in a pip env built from a wheel in ``tmp``: GPT-2-small
+    answers phase 5's first two prompts on the card; then ``stop``."""
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    cfg, lengths, prompts, params, _ = serving_workload()
+    wheels = os.path.join(tmp, "wheels")
+    _toy_wheel(wheels, "toydep", "1.0")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RAY_TPU_TORCH_TMPDIR=tmp,
+               RAY_TPU_TORCH_RUNTIME_ENV_PIP_NO_INDEX="1",
+               RAY_TPU_TORCH_RUNTIME_ENV_PIP_FIND_LINKS=wheels,
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    _cli(env, "start", "--head", "--num-cpus", "2")
+    head_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "current_cluster")) as f:
+        rec = json.load(f)
+    try:
+        status = _cli(env, "status")
+        cards = torch.cuda.device_count()
+        if f"GPU: {cards:g}/{cards:g}" not in status:
+            raise AssertionError(f"status shows no GPU {cards}/{cards}: "
+                                 f"{status}")
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"prompts": prompts[:CLUSTER_PROMPTS],
+                       "max_tokens": params.max_tokens,
+                       "timeout": CLUSTER_TIMEOUT_S}, f)
+        script = os.path.join(tmp, "job_script.py")
+        with open(script, "w") as f:
+            f.write(JOB_SCRIPT)
+        client = JobSubmissionClient(rec["address"])
+        try:
+            t0 = time.perf_counter()
+            sid = client.submit_job(
+                entrypoint=f"{sys.executable} {script} {job}",
+                metadata={"phase": "6j"})
+            state = client.wait_until_finished(sid, timeout=CLUSTER_TIMEOUT_S)
+            job_s = time.perf_counter() - t0
+            logs = client.get_job_logs(sid)
+        finally:
+            client.close()
+    finally:
+        _cli(env, "stop")
+    _wait_gone(rec["session_dir"], "stop")
+    line = next((ln for ln in logs.splitlines() if ln.startswith("TASK ")),
+                None)
+    if state != JobStatus.SUCCEEDED or line is None:
+        raise AssertionError(f"job {sid} {state}: {logs[-3000:]}")
+    out = json.loads(line[len("TASK "):])
+    env_dir = os.path.dirname(os.path.dirname(out["python"]))
+    if out["toydep"] != "1.0" or "runtime_envs/pip/" not in out["python"] \
+            or out["device"] != "cuda:0" or \
+            out["cuda_visible_devices"] is None:
+        raise AssertionError(f"the job's task: {out}")
+    venv_s = os.path.getmtime(os.path.join(env_dir, "READY")) - \
+        os.path.getmtime(os.path.join(env_dir, "pyvenv.cfg"))
+    _check_serving_launches("the job's task", out["launches"],
+                            out["attention_calls"])
+    tokens = out["tokens"]
+    if set(out["states"]) != {"FINISHED"}:
+        raise AssertionError(f"the job's requests ended {out['states']}")
+    for i, (got, want) in enumerate(zip(tokens, ref["tokens"])):
+        if got != want:
+            pos = next((j for j, (a, b) in enumerate(zip(got, want))
+                        if a != b), len(want))
+            raise AssertionError(
+                f"the job's request {i} differs from phase 5's at token "
+                f"{pos}: {got} against {want}; phase 5's top-two logit gap "
+                f"there {_top2_gap(ref['core'], prompts[i] + want[:pos])}")
+    gen = sum(len(t) for t in tokens)
+    res = {"head_start_s": head_s, "venv_build_s": venv_s, "job_s": job_s,
+           "task_start_s": out["started_at"] - out["submitted_at"],
+           "generate_s": out["generate_s"],
+           "tokens_per_s": gen / out["generate_s"],
+           "cuda_visible_devices": out["cuda_visible_devices"]}
+    print(f"[cluster-6j] (a) python -m ray_tpu_torch start --head up in "
+          f"{head_s:.3f} s, status: GPU {cards}/{cards}; a job through "
+          f"JobSubmissionClient, one num_gpus=1 task in a pip env "
+          f"(toydep 1.0, the venv built in {venv_s:.3f} s): GPT-2-small on "
+          f"{out['device']} (CUDA_VISIBLE_DEVICES="
+          f"{out['cuda_visible_devices']}) answered phase 5's first "
+          f"{CLUSTER_PROMPTS} prompts, {gen} tokens identical to phase 5's, "
+          f"in {out['generate_s']:.4f} s ({res['tokens_per_s']:.2f} "
+          f"tokens/s); the task started {res['task_start_s']:.3f} s after "
+          f"the job's driver submitted it; SUCCEEDED {job_s:.3f} s after "
+          f"submit; flash_fwd launches {out['launches']['flash_fwd']} = "
+          f"attention calls {out['attention_calls']}; stop left no process "
+          f"of the session on {card_label}", flush=True)
+    return out["launches"], res
+
+
+def _cluster_prefill(ids):
+    """The autoscaled host's task: GPT-2-small from seed 0 on the card its
+    lease gave it, one prefill of ``ids`` through flash_fwd."""
+    started_at = time.time()
+    from ray_tpu_torch.llm import EngineCore
+    from ray_tpu_torch.models import GPT2Config
+
+    core = EngineCore(GPT2Config.small(), device="cuda", seed=0,
+                      page_size=16, num_pages=64, engine_name="autoscaled")
+    torch.cuda.synchronize()
+    _zero_counts()
+    logits = _prefill_logits(core, ids)
+    return {"logits": logits, "launches": _read_counts(),
+            "attention_calls": core.runner.attention_calls,
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cards": torch.cuda.device_count(), "device": str(core.device),
+            "started_at": started_at}
+
+
+def _plain_prefill_logits(ids) -> torch.Tensor:
+    """The next-token logits after ``ids`` of seed 0's GPT-2-small in f32
+    on the card with plain attention (GPT2LMModel with
+    attention_impl="reference"): no hand-written kernel in it."""
+    from ray_tpu_torch.llm import random_flax_params
+    from ray_tpu_torch.models import GPT2Config, GPT2LMModel, params_from_flax
+
+    model = GPT2LMModel(GPT2Config(dtype=torch.float32,
+                                   attention_impl="reference"), device="cuda")
+    model.load_state_dict(params_from_flax(
+        random_flax_params(GPT2Config.small(), seed=0)))
+    with torch.no_grad():
+        logits = model(torch.tensor([ids], device="cuda"))[0, -1]
+    return logits.double().cpu()
+
+
+def cluster_autoscale(card_label, ref) -> tuple:
+    """6j (b): a head that counts no card, and a StandardAutoscaler over
+    GPUNodeProvider on FakeGpuCloud with one h100-1 node type: a pending
+    num_gpus=1 task makes it launch a host, whose nodelet sees card 0; the
+    task prefills phase 5's prompt there, held against plain attention's
+    logits and phase 5's engine's; the idle host is reaped, its nodelet
+    gone."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.autoscaler import (AutoscalingConfig, NodeTypeConfig,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.autoscaler.gpu_provider import (FakeGpuCloud,
+                                                       GPUNodeProvider)
+
+    _, _, prompts, _, _ = serving_workload()
+    ids = prompts[CLUSTER_PREFILL]
+    plain = _plain_prefill_logits(ids)
+    want = torch.from_numpy(_prefill_logits(ref["core"], ids))
+    rt.init(num_cpus=2, num_gpus=0)
+    node = worker_mod.global_worker().node
+    core = worker_mod.require_core()
+
+    def gcs_call(method, msg):
+        return core.io.run(core.gcs_conn.call(method, msg))
+
+    api = FakeGpuCloud(gcs_addr=list(node.gcs_addr),
+                       session_dir=node.session_dir)
+    provider = GPUNodeProvider({}, "smoke", api=api)
+    scaler = StandardAutoscaler(AutoscalingConfig(
+        node_types={"gpu-h100-1": NodeTypeConfig(
+            resources={"CPU": 1.0, "GPU": 1.0}, max_workers=1,
+            node_config={"gpu_node_type": "h100-1"})},
+        max_workers=1, idle_timeout_s=CLUSTER_IDLE_S,
+        update_interval_s=0.5), provider, gcs_call)
+    scaler.launch_grace_s = CLUSTER_GRACE_S
+    try:
+        head_gpus = rt.cluster_resources().get("GPU", 0)
+        if head_gpus:
+            raise AssertionError(f"the head counts {head_gpus} GPU")
+        scaler.start()
+        t0 = time.time()
+        out = rt.get(rt.remote(num_gpus=1)(_cluster_prefill).remote(ids),
+                     timeout=CLUSTER_TIMEOUT_S)
+        done = time.time()
+        hosts = provider.non_terminated_nodes({})
+        if len(hosts) != 1 or scaler.launched["gpu-h100-1"] != 1:
+            raise AssertionError(f"hosts {hosts}, launched "
+                                 f"{scaler.launched}")
+        group = provider.node_tags(hosts[0])["gpu-group"]
+        nodelet = api._groups[group]["hosts"][0].nodelet_proc
+        # reaped: the autoscaler's termination done and the nodelet exited
+        while (not scaler.terminated or nodelet.poll() is None) and \
+                time.time() < done + CLUSTER_TIMEOUT_S:
+            time.sleep(0.1)
+        reap_s = time.time() - done
+        if provider.non_terminated_nodes({}) or scaler.terminated != 1 or \
+                nodelet.poll() is None or api.group_state(group) != "DELETED":
+            raise AssertionError(f"the idle host was not reaped: terminated "
+                                 f"{scaler.terminated}, its nodelet "
+                                 f"{nodelet.poll()}")
+    finally:
+        scaler.stop()
+        provider.shutdown()
+        rt.shutdown()
+    _wait_gone(node.session_dir, "shutdown")
+    if out["cuda_visible_devices"] != "0" or out["cards"] != 1 or \
+            out["device"] != "cuda:0":
+        raise AssertionError(f"the autoscaled host's task saw "
+                             f"{out['cuda_visible_devices']}, "
+                             f"{out['cards']} cards, {out['device']}")
+    _check_serving_launches("the autoscaled host's task", out["launches"],
+                            out["attention_calls"])
+    got = torch.tensor(out["logits"])
+    err = _check_close("the autoscaled host's logits against plain "
+                       "attention's", got, plain, LOGITS_TOL)
+    engine_err = _check_close("the autoscaled host's logits against phase "
+                              "5's engine's", got, want, LOGITS_TOL)
+    res = {"scale_up_s": out["started_at"] - t0, "reap_s": reap_s,
+           "max_abs_err": err, "engine_max_abs_err": engine_err,
+           "bit_equal": bool(np.array_equal(out["logits"], want.numpy()))}
+    print(f"[cluster-6j] (b) a head with GPU 0, StandardAutoscaler over "
+          f"GPUNodeProvider(FakeGpuCloud), node type h100-1: the pending "
+          f"num_gpus=1 task ran on the launched host "
+          f"{res['scale_up_s']:.3f} s after it was submitted, on "
+          f"{out['device']} (CUDA_VISIBLE_DEVICES="
+          f"{out['cuda_visible_devices']}, {out['cards']} card); the "
+          f"prefill of phase 5's prompt {CLUSTER_PREFILL} ({len(ids)} "
+          f"tokens): last logits max_abs_err={err:.3e} to plain "
+          f"attention's (GPT2LMModel, reference) and {engine_err:.3e} to "
+          f"phase 5's engine's (atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}; "
+          f"bit for bit {res['bit_equal']}), flash_fwd launches "
+          f"{out['launches']['flash_fwd']}; the idle host reaped "
+          f"{reap_s:.3f} s after the task ended (idle timeout "
+          f"{CLUSTER_IDLE_S} s), its nodelet gone, no process of the "
+          f"session left on {card_label}", flush=True)
+    return out["launches"], res
+
+
+def cluster_tooling(card_label, ref) -> tuple:
+    """Phase 6j: the cluster surface, each part on a runtime of its own in
+    a temporary RAY_TPU_TORCH_TMPDIR: (a) the CLI and a submitted job, (b)
+    the autoscaler growing a GPU host."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="cluster-6j-")
+    saved = os.environ.get("RAY_TPU_TORCH_TMPDIR")
+    os.environ["RAY_TPU_TORCH_TMPDIR"] = tmp
+    try:
+        job, out["job"] = cluster_job(card_label, ref, tmp)
+        autoscaled, out["autoscaler"] = cluster_autoscale(card_label, ref)
+    finally:
+        if saved is None:
+            os.environ.pop("RAY_TPU_TORCH_TMPDIR")
+        else:
+            os.environ["RAY_TPU_TORCH_TMPDIR"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[cluster-6j] the phase {out['phase_s']:.3f} s on {card_label}",
+          flush=True)
+    return job, autoscaled, out
 
 
 # ------------------------------------------------------------- phase 6o
@@ -3928,12 +4340,7 @@ def mpmd_train(card_label) -> tuple:
         f32 = _mpmd_f32_step()
     finally:
         rt.shutdown()
-    deadline = time.monotonic() + 30
-    while (left := _port_processes(session_dir)) and \
-            time.monotonic() < deadline:
-        time.sleep(0.2)
-    if left:
-        raise AssertionError(f"port processes left after shutdown: {left}")
+    _wait_gone(session_dir, "shutdown")
     theory = theoretical_bubble_fraction(MPMD_STAGES, MPMD_MICRO)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     for s in stages:
@@ -4982,6 +5389,11 @@ def main() -> int:
     # 5s. phase 5's traffic through Serve, to an engine actor on the card
     # (the engine's process zeroes nothing: its counts must read 0 before)
     paths["serve_deployment"], serving_5s = serve_deployment(label, serving)
+    # 6j. the cluster surface: a job submitted through the CLI's cluster
+    # and a host the autoscaler launches, each serving on the card (each
+    # task zeroes and reads its counters)
+    paths["job"], paths["autoscaled"], cluster = cluster_tooling(
+        label, serving)
     del serving["core"]
     paths["train"], training = train(card, label)
     paths["train_moe"], training_moe = train_moe(card, label)
@@ -5095,6 +5507,7 @@ def main() -> int:
     print("[rl] result " + json.dumps(rl), flush=True)
     print("[serve] result " + json.dumps(serving), flush=True)
     print("[serve-5s] result " + json.dumps(serving_5s), flush=True)
+    print("[cluster-6j] result " + json.dumps(cluster), flush=True)
     print(json.dumps({"kernels": [kernel, combine, *backward]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

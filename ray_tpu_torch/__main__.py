@@ -1,0 +1,9 @@
+"""Port of ``ray_tpu/__main__.py``.
+
+`python -m ray_tpu_torch` — the CLI (reference: the `ray` console script)."""
+
+import sys
+
+from ray_tpu_torch.scripts.cli import main
+
+sys.exit(main())

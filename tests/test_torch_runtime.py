@@ -79,7 +79,11 @@ _private/taskfold.py _private/critical_path.py util/tracing.py util/metrics.py
 _lint/__init__.py _lint/core.py _lint/wire_contract.py util/state.py
 dashboard/__init__.py dashboard/__main__.py
 util/actor_pool.py util/queue.py util/multiprocessing.py util/joblib.py
-workflow/__init__.py cluster_utils.py""".split()
+workflow/__init__.py cluster_utils.py
+runtime_env/pip.py runtime_env/container.py job_submission/__init__.py
+scripts/__init__.py __main__.py autoscaler/__init__.py
+autoscaler/node_provider.py autoscaler/autoscaler.py
+autoscaler/command_runner.py autoscaler/sdk.py autoscaler/monitor.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -593,7 +597,78 @@ as the canonical format so data flows shared-memory store ->
 ``torch.from_numpy`` without row pivots, and ``iter_torch_batches`` /
 ``streaming_split`` feeding training loops on the cards.
 """)]
+# the CLI's and the launcher's files live under the sessions' root,
+# ``temp_root()``, as the sessions do
+TEMP_ROOT_ENV = ('os.environ.get("RAY_TPU_TORCH_TMPDIR", "/tmp/ray_tpu_torch")',
+                 "temp_root()")
+# ``up``/``down`` take the GPU provider where the reference takes its TPU one
+LAUNCHER_GPU = [
+    ("""the shape a TPU cluster actually needs:
+
+- parse + validate a cluster YAML (head + worker node types, incl.
+  ``tpu_pod_type`` slices),""", """the shape a GPU cluster actually needs:
+
+- parse + validate a cluster YAML (head + worker node types, incl.
+  ``gpu_node_type`` groups),"""),
+    ("""      type: tpu            # tpu | local
+      fake: true           # FakeTpuCloud instead of gcloud
+      project_id: p        # real path only
+      availability_zone: us-central2-b""",
+     """      type: gpu            # gpu | local
+      fake: true           # FakeGpuCloud instead of gcloud
+      project_id: p        # real path only
+      availability_zone: us-central1-a"""),
+    ("""      tpu_worker:
+        resources: {CPU: 1, TPU: 4}
+        node_config: {tpu_pod_type: v5e-8}""",
+     """      gpu_worker:
+        resources: {CPU: 1, GPU: 8}
+        node_config: {gpu_node_type: h100-16}"""),
+    ("from ray_tpu_torch.autoscaler.autoscaler import",
+     "from ray_tpu_torch._private.config import temp_root\n"
+     "from ray_tpu_torch.autoscaler.autoscaler import"),
+    TEMP_ROOT_ENV,
+    ('if provider.get("type") not in ("tpu", "local"):',
+     'if provider.get("type") not in ("gpu", "local"):'),
+    ("provider.type must be 'tpu' or 'local'",
+     "provider.type must be 'gpu' or 'local'"),
+    ("""        if provider["type"] == "tpu" and \\
+                not node_types[name].node_config.get("tpu_pod_type"):
+            raise ValueError(
+                f"node type {name!r}: the tpu provider needs "
+                f"node_config.tpu_pod_type (e.g. 'v5e-8')")""",
+     """        if provider["type"] == "gpu" and \\
+                not node_types[name].node_config.get("gpu_node_type"):
+            raise ValueError(
+                f"node type {name!r}: the gpu provider needs "
+                f"node_config.gpu_node_type (e.g. 'h100-16')")"""),
+    ("""    if p["type"] == "tpu":
+        from ray_tpu_torch.autoscaler.tpu_provider import (FakeTpuCloud,
+                                                     TPUNodeProvider)
+
+        if api is None and p.get("fake"):
+            if gcs_addr is None:
+                raise ValueError("fake tpu provider needs the head's "
+                                 "gcs address")
+            api = FakeTpuCloud(""",
+     """    if p["type"] == "gpu":
+        from ray_tpu_torch.autoscaler.gpu_provider import (FakeGpuCloud,
+                                                           GPUNodeProvider)
+
+        if api is None and p.get("fake"):
+            if gcs_addr is None:
+                raise ValueError("fake gpu provider needs the head's "
+                                 "gcs address")
+            api = FakeGpuCloud("""),
+    ("        return TPUNodeProvider(dict(p), config.cluster_name, api=api)",
+     "        return GPUNodeProvider(dict(p), config.cluster_name, api=api)")]
 EDITED_COPIES = {
+    "scripts/cli.py": [
+        ("import time\n\n_ADDR_FILE",
+         "import time\n\nfrom ray_tpu_torch._private.config import "
+         "temp_root\n\n_ADDR_FILE"),
+        TEMP_ROOT_ENV],
+    "autoscaler/launcher.py": LAUNCHER_GPU,
     "util/collective/__init__.py": [
         # xla.py's in-program collectives are torch.distributed calls here
         ("quantization, topology, xla\n", "quantization, topology\n"),
