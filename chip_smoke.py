@@ -22,7 +22,8 @@ Phases, each fatal on failure:
      CTAs) gives o and lse bit for bit equal to the standalone combine
      kernel's on the very partials that launch merged, and to a repeat;
      then the standalone combine kernel against its plain version at the
-     serving decode's partials;
+     serving decode's partials (and 6j's 600-token and 6k's 4096-token
+     unchunked f32 prefills among the cases);
   3b. backward kernels (dQ, which also writes delta, then dK/dV) against
      flash_attention_bwd_plain on the forward kernel's o and lse, at the
      training path's shape and thirteen more cases (phase 6f's
@@ -196,6 +197,16 @@ Phases, each fatal on failure:
      CartPole steps, minibatch 128) on the card against the CPU from the
      same parameters, TF32 off: every minibatch's losses and the
      parameters within 1e-5, the norm within 1e-6, relative;
+  6m. the MPMD pipeline (after 6t, on its runtime): TorchTrainer(
+     gpt2_pipeline_loop, pipeline_stages=2, num_microbatches=4) trains
+     GPT-2-small (bf16, flash, no remat) 10 steps at phase 6's batch on
+     two stage worker actors sharing card 0, against the loop at one
+     stage; losses finite, falling and within phase 6's bf16 bar of one
+     stage's; each worker's counters (flash_fwd, dQ and dK/dV 6 x 4 a
+     step), its card, peak memory, frames by link, the native channel;
+     no new caching-allocator segment in step 1 on any stage (each
+     stage reaches its steady memory in step 0); then the f32 step two
+     stages against one, and 6o (b);
   6r. RL (after 6m, on a runtime of its own): (a) PPOConfig at
      tests/test_rllib.py:75-97's config with one learner actor on the card
      must reach a return of 350 within 200,000 env steps, the learner
@@ -258,6 +269,34 @@ Phases, each fatal on failure:
      state.critical_path(trace_id=...) holds the worker's session_start
      and is no longer than the fit's wall, and export_otlp writes the
      trace with its on_critical_path spans;
+  6k. the bench harnesses (after 6r, on a runtime of their own, [bench-6k]
+     lines): (a) serve_load_bench at GPT-2-small in f32: prefix_ab's two
+     arms in this process, their outputs identical (where they differ,
+     the top-two logit gap at the first differing token must be under
+     1e-4) and their prefill counts those of the same arms on the CPU;
+     chunked_prefill_ab's 4096-token prompt dropped into 8 decoding
+     streams, unchunked against chunks of 256 (GPT-2-small's widths, the
+     harness's vocabulary of 512), its two max inter-token latencies;
+     sse_load's 256 streams of 8 tokens over two llm_deployment replicas
+     whose engines share card 0 (num_gpus 0.5 each), through the HTTP
+     proxy: 256 completed, none shed, no half-stream, TTFT and ITL
+     percentiles and goodput; this process's counters set to 0 before
+     prefix_ab and read after chunked_prefill_ab, and each engine's
+     process read (flash_fwd once per attention call, no combine or
+     backward launch, no build), both engines on cuda:0; (c) the host
+     harnesses at the sizes each line prints (ray_perf at 0.25 s an axis,
+     collective_bench at 16 MiB and world 4, recovery_bench whole,
+     rl_bench at one round and its Sebulba row with the learner on the
+     card, ray_perf last: it pins its thread to a core), in a process and
+     on a runtime of their own, beside (a) and (b); (b) pipeline_bench at
+     GPT-2-small's widths and depth in bf16 (no remat), batch 8 x 32:
+     run_pipeline_bench at M 1, 4 and 8 (one stage against two over
+     ShmChannels on threads, every stage on the card) with each M's
+     critical path reconciled with its BubbleClock (buckets summing to
+     the path), and run_train_3d_bench's (1, 1, 2) and (2, 1, 1) cells
+     and its int8 cell; flash_fwd, dQ and dK/dV once per attention call
+     of the steps the rows ran, no combine or delta launch; every row
+     printed, and the phase's time;
   7. the kernels line, then the card line, then the result line.
 
 Needs a CUDA card: without one it exits non-zero and prints no result.
@@ -297,13 +336,27 @@ def _peaks(name: str):
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    """Wall time per call on the card's stream (CUDA events over ``iters``
-    back-to-back calls): includes the host's launch cost when that is the
-    longer of the two."""
+# a timing takes ``iters`` calls, or fewer (at least 3) where that many
+# would take longer than this: the plain versions' host loops take up to
+# a third of a second a call
+TIMING_BUDGET_S = 0.25
+
+
+def _warm_iters(fn, iters: int) -> int:
+    """Three warm-up calls of ``fn``, then how many calls to time."""
+    t0 = time.perf_counter()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    call_s = (time.perf_counter() - t0) / 3
+    return max(3, min(iters, int(TIMING_BUDGET_S / max(call_s, 1e-9))))
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    """Wall time per call on the card's stream (CUDA events over ``iters``
+    back-to-back calls, fewer for a slow ``fn``: ``_warm_iters``):
+    includes the host's launch cost when that is the longer of the two."""
+    iters = _warm_iters(fn, iters)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -316,7 +369,8 @@ def _time_ms(fn, iters: int = 20) -> float:
 
 def _device_ms(fn, iters: int = 20, part=None, launches: int = 0):
     """Device time per call: the summed time of every kernel ``fn`` runs on
-    the card, traced by torch.profiler (CUPTI), over ``iters`` calls.  With
+    the card, traced by torch.profiler (CUPTI), over ``iters`` calls (fewer
+    for a slow ``fn``: ``_warm_iters``).  With
     ``part``, also the share of the kernels whose name holds ``part`` (a
     name, or a tuple of names for a dict of shares).  With ``launches``,
     the number of those kernels' launches a call: a trace that holds fewer
@@ -325,9 +379,7 @@ def _device_ms(fn, iters: int = 20, part=None, launches: int = 0):
     from torch.profiler import ProfilerActivity, profile
 
     names = part if isinstance(part, tuple) else (part,) if part else ()
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
+    iters = _warm_iters(fn, iters)
     # CUPTI now and then hands back an empty trace, or one without some of
     # the launches; the work is the same each time, so trace it again (at
     # most three times)
@@ -418,6 +470,10 @@ ATTN_CASES = [
     # phase 6j's autoscaled host: one unchunked prefill of phase 5's
     # 600-token prompt (its KV splits merged in the launch)
     ("serve_prefill600_f32", torch.float32, 1, 12, 600, 600, 64, True, 0, 0),
+    # phase 6k's chunked_prefill_ab: its unchunked arm's prefill of the
+    # 4096-token prompt
+    ("serve_prefill4096_f32", torch.float32, 1, 12, 4096, 4096, 64, True,
+     0, 0),
 ]
 FUSED_QKV_CASES = {"gpt2_fused_qkv_bf16", "pipeline_pp2_fused_qkv_bf16",
                    "pipeline_pp4_fused_qkv_bf16", "pipeline_fused_qkv_f32"}
@@ -4112,12 +4168,14 @@ def _mpmd_config(job, dtype="bfloat16", batch=TRAIN_BATCH,
 def _mpmd_loop(config):
     """``gpt2_pipeline_loop`` in a stage worker, with its counters set to 0
     just before the executor's first step and, on the last step's report,
-    what that worker saw: its launches, its card, peak memory, the tensor
-    bytes of the frames it sent on each link, whether each link's channel
-    runs on the native library, the modules it loaded and the kernels it
-    built.  The trainer keeps rank 0's reports only, so each worker also
-    writes every report it made to ``stage<k>-r<replica>.json`` under
-    ``config["smoke_dir"]`` (one host)."""
+    what that worker saw: its launches, its card, peak memory, the
+    caching allocator's new segments (``cudaMalloc`` calls) in each step,
+    the tensor bytes of the frames it sent on each link, whether each
+    link's channel runs on the native library, the modules it loaded and
+    the kernels it built.  The trainer keeps rank 0's reports only, so
+    each worker also writes every report it made to
+    ``stage<k>-r<replica>.json`` under ``config["smoke_dir"]`` (one
+    host)."""
     from ray_tpu_torch import train
     from ray_tpu_torch._native import build
     from ray_tpu_torch.train.pipeline import gpt2_pipeline_loop, schedule
@@ -4128,14 +4186,21 @@ def _mpmd_loop(config):
     report = train.report
     cuda = config.get("device") in (None, "cuda")
 
+    def segments() -> int:
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
     def counted_step(self, batch):
         if self.step_idx == 0:
             if cuda:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
+                seen["segments"] = [segments()]
             _zero_counts()
             seen["ex"] = self
-        return first_step(self, batch)
+        out = first_step(self, batch)
+        if cuda:
+            seen["segments"].append(segments())
+        return out
 
     def reporting(metrics, checkpoint=None):
         ex = seen.get("ex")
@@ -4154,7 +4219,8 @@ def _mpmd_loop(config):
                 metrics.update(
                     card=torch.cuda.get_device_name(),
                     pci_bus_id=_pci_bus_id(torch.cuda.current_device()),
-                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    new_segments=np.diff(seen["segments"]).tolist())
         if "loss" in metrics:
             seen.setdefault("reports", []).append(metrics)
             if metrics["step"] == config["steps"] - 1:
@@ -4204,12 +4270,18 @@ def _mpmd_fit(config, n_stages, workers, gpus_per_worker, name, dp=1):
 
 
 def _stage_line(stage, ms, launches_want) -> dict:
-    """A stage's numbers from its history, checked: its launches, its
-    links on the native channel, no jax or ray_tpu module, no build."""
+    """A stage's numbers from its history, checked: its launches, no new
+    allocator segment in step 1 (the stage reached its steady memory in
+    step 0), its links on the native channel, no jax or ray_tpu module, no
+    build."""
     last = ms[-1]
     if launches_want is not None and last["launches"] != launches_want:
         raise AssertionError(f"stage {stage}'s launches {last['launches']},"
                              f" expected {launches_want}")
+    segments = last.get("new_segments")
+    if segments is not None and segments[1]:
+        raise AssertionError(f"stage {stage} took new allocator segments "
+                             f"in step 1: {segments} by step")
     if not all(last["native"].values()) or last["foreign"] or \
             last["builds"]:
         raise AssertionError(
@@ -4222,8 +4294,8 @@ def _stage_line(stage, ms, launches_want) -> dict:
     return {"stage": stage, **mean,
             **{k: last.get(k) for k in ("launches", "device", "card",
                                          "pci_bus_id", "peak_memory_gb",
-                                         "frame_bytes", "native",
-                                         "foreign", "builds")}}
+                                         "new_segments", "frame_bytes",
+                                         "native", "foreign", "builds")}}
 
 
 def _mpmd_f32_step(device="cuda", widths=None) -> dict:
@@ -4351,7 +4423,8 @@ def mpmd_train(card_label) -> tuple:
               f"bubble_fraction={s['bubble_fraction']:.4f} (1F1B's "
               f"theoretical {theory:.4f}; both stages share one card, so "
               f"this is not a pipeline's bubble); peak_memory_gb="
-              f"{s['peak_memory_gb']:.3f}; tensor bytes a frame by link "
+              f"{s['peak_memory_gb']:.3f}; new allocator segments by step "
+              f"{s['new_segments']}; tensor bytes a frame by link "
               f"{s['frame_bytes']}; native channel by link {s['native']}; "
               f"jax or ray_tpu modules {s['foreign']}; kernel builds "
               f"{s['builds']}; launches {s['launches']}", flush=True)
@@ -4364,7 +4437,8 @@ def mpmd_train(card_label) -> tuple:
           f"{tokens / stages[0]['step_wall_s']:.1f} (stage 0's step wall); "
           f"one stage: step_wall_s={one['step_wall_s']:.4f} "
           f"busy_s={one['busy_s']:.4f} peak_memory_gb="
-          f"{one['peak_memory_gb']:.3f}; fits {fit2_s:.3f} s and "
+          f"{one['peak_memory_gb']:.3f} new allocator segments by step "
+          f"{one['new_segments']}; fits {fit2_s:.3f} s and "
           f"{fit1_s:.3f} s; f32 step at batch {PARITY_BATCH}, two stages "
           f"against one (loss, grad norm): {f32} (bars {F32_LOSS_RTOL}, "
           f"{F32_NORM_RTOL}); no port process left; the phase "
@@ -5320,6 +5394,391 @@ def rl_train(card_label) -> tuple:
     return launches, out
 
 
+# ------------------------------------------------------------ phase 6k
+# the harnesses a benchmark of the port runs (ray_tpu_torch/_private/
+# *_bench.py and ray_perf.py), on the card: serve_load at GPT-2-small,
+# pipeline_bench at GPT-2-small's widths and depth, the host harnesses at
+# reduced sizes (each cut printed)
+BENCH_LONG_LEN = 4096  # chunked_prefill_ab's prompt, the harness's own
+BENCH_STREAMS = 256  # sse_load's streams, the harness's default
+BENCH_PERF_S = 0.25  # ray_perf's seconds an axis (the harness's 2.0)
+BENCH_COLLECTIVE = (16 * 1024 ** 2, 4)  # its acceptance point alone
+BENCH_RL_ROUNDS = 1  # rl_bench's rounds (the harness's 3)
+BENCH_PIPE_ROUNDS = 1  # run_pipeline_bench's rounds (the harness's 3)
+BENCH_3D_STEPS = 2  # run_train_3d_bench's steps, one timed (the harness's 4)
+# what PERF.md predicted before the phase first ran on the card
+BENCH_PREDICTION = (
+    "prefix_ab: arms identical, prefilled 1216 -> 480 tokens, 736 hit; "
+    "chunked_prefill_ab: unchunked max ITL 40-120 ms, chunked 15-50 ms, "
+    "ratio 0.2-0.7; sse_load: 256 of 256, 0 shed, 0 half, TTFT p50 1-6 s, "
+    "ITL p50 30-150 ms, goodput 150-600 tokens/s; pipeline: two stages "
+    "slower than one on one card (measured_speedup 0.5-0.95), "
+    "reconciliation within 15 points at every M; the phase 120-200 s")
+
+
+def _engine_facts() -> list:
+    """``stats()["process"]`` of every live InferenceEngine actor, got
+    from the actor itself (through a handle made from its id), not through
+    the router, which picks a replica."""
+    from ray_tpu_torch._private.ids import ActorID
+    from ray_tpu_torch.actor import ActorHandle, _AnyMethodMeta
+    from ray_tpu_torch.util import state
+
+    import ray_tpu_torch as rt
+
+    out = []
+    for a in state.list_actors():
+        if a.get("class_name") == "InferenceEngine" and \
+                a.get("state") == "ALIVE":
+            handle = ActorHandle(ActorID(bytes.fromhex(a["actor_id"])),
+                                 _AnyMethodMeta(),
+                                 class_name="InferenceEngine")
+            out.append(rt.get(handle.stats.remote(), timeout=60)["process"])
+    return out
+
+
+def _prefix_rows(card_cfg):
+    """prefix_ab on the card at ``card_cfg`` and on the CPU at the tiny
+    config: the arms through the harness's own ``_run_prefix_arm`` and its
+    row through ``run_prefix_ab``.  The prompts' lengths and the token
+    counts (8 a request, no stop token) fix every prefill count, so the
+    CPU's counts are the card's.  Where the card's arms differ, the
+    in-process top-two logit gap at the first differing token is printed:
+    under NEAR_TIE it is a tie, not a fault."""
+    from ray_tpu_torch._private import serve_load_bench as slb
+    from ray_tpu_torch.models import GPT2Config
+
+    def row(arms, device, cfg):
+        orig = slb._run_prefix_arm
+        slb._run_prefix_arm = lambda enable, *a, **k: arms[enable]
+        try:
+            return slb.run_prefix_ab(device, cfg)
+        finally:
+            slb._run_prefix_arm = orig
+
+    cpu_arms = {e: slb._run_prefix_arm(e, "cpu", GPT2Config.tiny())
+                for e in (False, True)}
+    cpu = row(cpu_arms, "cpu", GPT2Config.tiny())
+    arms = {e: slb._run_prefix_arm(e, "cuda", card_cfg)
+            for e in (False, True)}
+    tie = None
+    try:
+        card = row(arms, "cuda", card_cfg)
+    except AssertionError:
+        off, on = arms[False]["outputs"], arms[True]["outputs"]
+        i = next(i for i, (a, b) in enumerate(zip(off, on)) if a != b)
+        pos = next(j for j, (a, b) in enumerate(zip(off[i], on[i]))
+                   if a != b)
+        prompts = slb._prefix_workload()
+        prompt = prompts[i] if i < 8 else (
+            prompts[i - 8] + off[i - 8] + [200 + (k % 30) for k in range(16)])
+        from ray_tpu_torch.llm import EngineCore
+
+        core = EngineCore(card_cfg, device="cuda", seed=0, num_pages=512,
+                          page_size=8, max_batch_tokens=128)
+        tie = _top2_gap(core, prompt + off[i][:pos])
+        print(f"[bench-6k] (a) prefix_ab: request {i} differs between the "
+              f"arms at token {pos}: {off[i][pos]} against {on[i][pos]}; "
+              f"top-two logit gap there {tie:.3e} (bar {NEAR_TIE:.0e})",
+              flush=True)
+        if tie >= NEAR_TIE:
+            raise
+        card = dict(cpu, outputs_identical=False, top2_gap=tie)
+    counts = ("prefilled_tokens_off", "prefilled_tokens_on",
+              "prefix_hit_tokens", "prefill_reduction_x")
+    if [card[k] for k in counts] != [cpu[k] for k in counts] or \
+            [arms[e]["prefilled_tokens"] for e in (False, True)] != \
+            [cpu_arms[e]["prefilled_tokens"] for e in (False, True)]:
+        raise AssertionError(f"prefix_ab's counts on the card {card} "
+                             f"against the CPU's {cpu}")
+    return card, cpu
+
+
+def bench_serve(card_label) -> tuple:
+    """6k (a): serve_load_bench's three rows at GPT-2-small in f32, as
+    phase 5: prefix_ab and chunked_prefill_ab in this process (its
+    counters set to 0 before, read after), then sse_load over two
+    llm_deployment replicas sharing card 0 on the runtime (each engine's
+    process read)."""
+    from ray_tpu_torch._private import serve_load_bench as slb
+    from ray_tpu_torch.llm.model_runner import GPT2Runner
+    from ray_tpu_torch.models import GPT2Config
+
+    small = GPT2Config.small()
+    # every runner made on the card in this process, to read its attention
+    # calls: each must have launched flash_fwd once
+    runners, init = [], GPT2Runner.__init__
+
+    def recording_init(self, *a, **k):
+        init(self, *a, **k)
+        if self.device.type == "cuda":
+            runners.append(self)
+    GPT2Runner.__init__ = recording_init
+    try:
+        torch.cuda.synchronize()
+        _zero_counts()
+        prefix, prefix_cpu = _prefix_rows(small)
+        # the harness's own vocabulary and positions, GPT-2-small's widths
+        chunked = slb.run_chunked_ab(BENCH_LONG_LEN, "cuda",
+                                     GPT2Config(vocab_size=512))
+        torch.cuda.synchronize()
+        local = _read_counts()
+    finally:
+        GPT2Runner.__init__ = init
+    calls = sum(r.attention_calls for r in runners)
+    if not (local["flash_fwd"] > 0 and local["flash_fwd"] == calls) or \
+            local["flash_fwd_combine"] or \
+            any(local[k] for k in BWD_KERNELS):
+        raise AssertionError(f"prefix_ab and chunked_prefill_ab in this "
+                             f"process launched {local} against "
+                             f"{calls} attention calls of "
+                             f"{len(runners)} runners on the card")
+    print(f"[bench-6k] (a) prefix_ab, GPT-2-small f32 on the card: "
+          f"{json.dumps(prefix)}; on the CPU (tiny config, the same "
+          f"prompts and lengths): {json.dumps(prefix_cpu)}; the counts "
+          f"equal; with chunked_prefill_ab flash_fwd {local['flash_fwd']} "
+          f"launches = attention calls of the {len(runners)} runners on "
+          f"the card", flush=True)
+    print(f"[bench-6k] (a) chunked_prefill_ab, GPT-2-small widths, vocab "
+          f"512, {BENCH_LONG_LEN + 256} positions, f32: "
+          f"{json.dumps(chunked)} on {card_label}", flush=True)
+    sse, engines = None, []
+    if importlib.util.find_spec("aiohttp") is None:
+        print("[bench-6k] (a) sse_load left out: aiohttp is not installed "
+              "here", flush=True)
+    else:
+        from ray_tpu_torch import serve as rt_serve
+
+        delete = rt_serve.delete
+
+        def read_then_delete(name):
+            engines.extend(_engine_facts())
+            return delete(name)
+        rt_serve.delete = read_then_delete
+        try:
+            sse = slb.run_sse_load(
+                num_streams=BENCH_STREAMS, num_replicas=2, max_tokens=8,
+                metrics_wait_s=15.0, device="cuda", model_config=small)
+        finally:
+            rt_serve.delete = delete
+        if (sse["completed"], sse["shed"], sse["half_streams"]) != \
+                (BENCH_STREAMS, 0, 0):
+            raise AssertionError(f"sse_load: {sse}")
+        if len(engines) != 2 or {e["device"] for e in engines} != \
+                {"cuda:0"} or len({e["pci_bus_id"] for e in engines}) != 1:
+            where = [(e["device"], e["pci_bus_id"]) for e in engines]
+            raise AssertionError(f"the two engines are not on card 0: "
+                                 f"{where}")
+        for e in engines:
+            k = e["kernel_launches"]
+            if not (k["flash_fwd"] > 0
+                    and k["flash_fwd"] == e["attention_calls"]) or \
+                    k["flash_fwd_combine"] or \
+                    any(k[b] for b in BWD_KERNELS) or e["kernels_built"]:
+                raise AssertionError(f"an engine's launches {k} against "
+                                     f"its attention calls "
+                                     f"{e['attention_calls']}, built "
+                                     f"{e['kernels_built']}")
+        print(f"[bench-6k] (a) sse_load, {BENCH_STREAMS} streams of 8 "
+              f"tokens over 2 llm_deployment replicas at "
+              f"num_gpus=0.5 each, GPT-2-small f32: "
+              f"{json.dumps(sse)}; engine launches "
+              f"{[e['kernel_launches']['flash_fwd'] for e in engines]} = "
+              f"attention calls {[e['attention_calls'] for e in engines]}, "
+              f"both on {engines[0]['device']} (PCI "
+              f"{engines[0]['pci_bus_id']}) of {card_label}", flush=True)
+    launches = dict(local)
+    for e in engines:
+        for k, n in e["kernel_launches"].items():
+            launches[k] += n
+    return launches, {"prefix_ab": prefix, "prefix_ab_cpu": prefix_cpu,
+                      "chunked_prefill_ab": chunked, "sse_load": sse,
+                      "engine_launches": [e["kernel_launches"]
+                                          for e in engines]}
+
+
+def bench_pipeline(card_label) -> tuple:
+    """6k (b): pipeline_bench at GPT-2-small's widths and depth in bf16
+    (phase 6m's dtype, no remat), the harness's batch: run_pipeline_bench's
+    three M values and run_train_3d_bench's (1, 1, 2) and (2, 1, 1) cells
+    (and the int8 cell it adds), every stage on the card in this process;
+    flash_fwd, dQ and dK/dV once per attention call, counted from the
+    steps the rows say ran."""
+    from ray_tpu_torch._private import pipeline_bench as pb
+    from ray_tpu_torch.models import GPT2Config
+
+    cfg = GPT2Config(remat=False, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _zero_counts()
+    pipe = pb.run_pipeline_bench("cuda", cfg, rounds=BENCH_PIPE_ROUNDS)
+    grid = pb.run_train_3d_bench("cuda", cfg, configs=((1, 1, 2), (2, 1, 1)),
+                                 steps=BENCH_3D_STEPS)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    # a step runs each layer once per microbatch; every M: the one-stage
+    # and the two-stage executors, a warm-up step and rounds x steps each
+    steps = 1 + pipe["rounds"] * pipe["steps_per_round"]
+    calls = sum(2 * steps * cfg.n_layer * m for m in pipe["micros"])
+    calls += sum(c["dp"] * BENCH_3D_STEPS * cfg.n_layer * grid["n_micro"]
+                 for c in grid["configs"])
+    want = {"flash_fwd": calls, "flash_bwd_dq": calls,
+            "flash_bwd_dkdv": calls, "flash_fwd_combine": 0,
+            "flash_bwd_delta": 0, "fused:flash_bwd_delta": calls}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"pipeline_bench's launches {got}, expected "
+                             f"{want}")
+    bad = [c for c in pipe["critical_path"]
+           if "error" in c or not c["buckets_sum_to_path"]]
+    if bad:
+        raise AssertionError(f"the critical path does not reconcile: {bad}")
+    for row in pipe["variants"]:
+        print(f"[bench-6k] (b) pipeline_bench M={row['n_micro']}: "
+              f"{json.dumps(row)}", flush=True)
+    for row in pipe["critical_path"]:
+        print(f"[bench-6k] (b) critical path M={row['n_micro']}: "
+              f"{json.dumps(row)}", flush=True)
+    for row in grid["configs"]:
+        print(f"[bench-6k] (b) train_3d {json.dumps(row)}", flush=True)
+    print(f"[bench-6k] (b) GPT-2-small bf16, batch {pb.BATCH} x {pb.SEQ}, "
+          f"run_pipeline_bench at {BENCH_PIPE_ROUNDS} round (the harness's "
+          f"3), run_train_3d_bench at {BENCH_3D_STEPS} steps (the "
+          f"harness's 4): launches {got} (= {calls} attention calls), int8 wire ratio "
+          f"{grid.get('int8_wire_ratio')} on {card_label}", flush=True)
+    return launches, {"pipeline": pipe, "train_3d": grid}
+
+
+def bench_host(card_label) -> dict:
+    """6k (c): the host harnesses on the runtime, at the sizes printed;
+    the learner of rl_bench in this process on the card.  No hand kernel
+    runs: this process's counters read 0 after.  Phase 6k runs it in a
+    process of its own, on a runtime of its own
+    (``_bench_host_main``), beside (a) and (b)."""
+    from ray_tpu_torch._private.collective_bench import run_collective_bench
+    from ray_tpu_torch._private.ray_perf import run_microbenchmarks
+    from ray_tpu_torch._private.recovery_bench import run_recovery_bench
+    from ray_tpu_torch._private.rl_bench import run_rl_bench
+
+    _zero_counts()
+    out = {}
+    t0 = time.perf_counter()
+    nbytes, world = BENCH_COLLECTIVE
+    out["collective"] = run_collective_bench(sizes=[nbytes], worlds=[world])
+    print(f"[bench-6k] (c) collective_bench at {nbytes >> 20} MiB, world "
+          f"{world} only (the harness sweeps 1-256 MiB at worlds 2 and 4), "
+          f"{time.perf_counter() - t0:.3f} s: "
+          f"{json.dumps(out['collective'])}", flush=True)
+    t0 = time.perf_counter()
+    out["recovery"] = run_recovery_bench()
+    print(f"[bench-6k] (c) recovery_bench whole, "
+          f"{time.perf_counter() - t0:.3f} s: "
+          f"{json.dumps(out['recovery'])}", flush=True)
+    t0 = time.perf_counter()
+    out["rl"] = run_rl_bench(BENCH_RL_ROUNDS)
+    print(f"[bench-6k] (c) rl_bench at {BENCH_RL_ROUNDS} round (the "
+          f"harness's 3) and the Sebulba row, the learner on the card, "
+          f"{time.perf_counter() - t0:.3f} s: {json.dumps(out['rl'])}",
+          flush=True)
+    # last: ray_perf pins this process's thread to one core for its 1:1
+    # round trips (bench_rig), which would slow whatever ran after it
+    t0 = time.perf_counter()
+    out["ray_perf"] = run_microbenchmarks(duration_s=BENCH_PERF_S)
+    print(f"[bench-6k] (c) ray_perf at {BENCH_PERF_S} s an axis (the "
+          f"harness's 2.0), {time.perf_counter() - t0:.3f} s: "
+          f"{json.dumps(out['ray_perf'])}", flush=True)
+    if any(_read_counts().values()):
+        raise AssertionError(f"the host harnesses launched attention "
+                             f"kernels: {_read_counts()}")
+    return out
+
+
+def _bench_host_main(out_path, card_label) -> None:
+    """6k (c) in a process of its own, on a runtime of its own, which it
+    shuts down; its rows go to ``out_path``."""
+    import ray_tpu_torch as rt
+
+    rt.init()
+    try:
+        out = bench_host(card_label)
+    finally:
+        rt.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def bench_harnesses(card_label) -> tuple:
+    """Phase 6k: (c) in a process of its own, on a runtime of its
+    own (``_bench_host_main``: the host harnesses use the card only for
+    rl_bench's small learner), while this process runs (a) on another
+    runtime, which it shuts down, then (b); every part runs and the phase
+    fails at the end if any failed."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as rt_serve
+    from ray_tpu_torch._private import worker as worker_mod
+
+    t_phase = time.perf_counter()
+    print(f"[bench-6k] prediction (PERF.md §6): {BENCH_PREDICTION}",
+          flush=True)
+    out, failed, times = {}, [], {}
+    launches = {"bench_serve": None, "bench_pipeline": None}
+
+    def run(part, fn):
+        t0 = time.perf_counter()
+        try:
+            launches["bench_" + part], out[part] = fn(card_label)
+        except Exception as err:
+            failed.append(f"{part}: {err!r}")
+            print(f"[bench-6k] {part}: FAILED: {err!r}", flush=True)
+        times[part] = time.perf_counter() - t0
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fd, host_out = tempfile.mkstemp(prefix="smoke_bench_host_",
+                                    suffix=".json")
+    os.close(fd)
+    env = {k: v for k, v in os.environ.items()
+           if k != "RAY_TPU_TORCH_ADDRESS"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    host = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+         f"_bench_host_main({host_out!r}, {card_label!r})"],
+        cwd=here, env=env)
+    rt.init(ignore_reinit_error=True)
+    session_dir = worker_mod.global_worker().node.session_dir
+    try:
+        run("serve", bench_serve)
+    finally:
+        rt_serve.shutdown()
+        rt.shutdown()
+    run("pipeline", bench_pipeline)
+    try:
+        rc = host.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        host.terminate()
+        rc = host.wait(timeout=60)
+    times["host"] = time.perf_counter() - t_phase
+    if rc:
+        failed.append(f"host: its process exited {rc}")
+    else:
+        with open(host_out) as f:
+            out["host"] = json.load(f)
+    os.unlink(host_out)
+    try:
+        _wait_gone(session_dir, "shutdown")
+    except AssertionError as err:
+        failed.append(repr(err))
+    out["part_s"], out["phase_s"] = times, time.perf_counter() - t_phase
+    print(f"[bench-6k] the phase {out['phase_s']:.3f} s (serve "
+          f"{times.get('serve', 0):.3f} then pipeline "
+          f"{times.get('pipeline', 0):.3f}, and beside them host "
+          f"{times.get('host', 0):.3f}) on {card_label}", flush=True)
+    if failed:
+        raise AssertionError("phase 6k failed: " + "; ".join(failed))
+    return launches, out
+
+
 def _runtime_stop():
     """Shut the port's runtime down (its GCS, nodelet and workers) if this
     process started it."""
@@ -5374,42 +5833,64 @@ def main() -> int:
         print(smi)
         return rc
 
+    # each phase's wall time, on a [time] line as it ends
+    laps, t_lap = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+        print(f"[time] {name}: {laps[name]:.1f} s", flush=True)
+
+    lap("build")
     # 3. kernels against their plain versions
     rows = attention_cases(card)
     combine_row = combine_case(card)
+    lap("3")
     # 3b. the backward kernels
     bwd_rows = backward_cases(card)
+    lap("3b")
 
     # 4. model at full width
     model_forward(random_flax_params(GPT2Config.small(), seed=0))
+    lap("4")
 
     # 5. and 6. the main paths, each with its counters set to 0 just before
     paths = {}
     paths["serve"], serving = serve(label)
+    lap("5")
     # 5s. phase 5's traffic through Serve, to an engine actor on the card
     # (the engine's process zeroes nothing: its counts must read 0 before)
     paths["serve_deployment"], serving_5s = serve_deployment(label, serving)
+    lap("5s")
     # 6j. the cluster surface: a job submitted through the CLI's cluster
     # and a host the autoscaler launches, each serving on the card (each
     # task zeroes and reads its counters)
     paths["job"], paths["autoscaled"], cluster = cluster_tooling(
         label, serving)
     del serving["core"]
+    lap("6j")
     paths["train"], training = train(card, label)
+    lap("6")
     paths["train_moe"], training_moe = train_moe(card, label)
+    lap("6e")
     paths["train_llama"], training_llama = train_llama(card, label)
+    lap("6b")
     paths["mesh"], mesh = mesh_train(
         card, label, training["losses"], training["step_ms"],
         {"gpt": training["parity_f32"]["flash"],
          "gpt-moe": training_moe["parity_f32"]["flash"]})
+    lap("6c")
     # 6d. ring attention's steps, each ring position in turn
     paths["ring"], ring = ring_one_card(label)
+    lap("6d")
     # 6f. the pipeline's ticks, each pp position in turn
     pipeline_paths, pipeline = train_pipeline(card, label, training)
     paths.update(pipeline_paths)
+    lap("6f")
     # 6g. phase 6's run through TorchTrainer on a worker actor of the
     # port's runtime (the worker zeroes and reads its counters)
     paths["runtime"], runtime, params_ref = runtime_train(label, training)
+    lap("6g")
     # 6t. Data -> Train -> Tune on the same runtime: phase 6's run fed by a
     # ray_tpu_torch.data pipeline through TorchTrainer(datasets=), then a
     # Tuner's two trials side by side on the card (each worker zeroes and
@@ -5417,16 +5898,26 @@ def main() -> int:
     paths["data"], paths["tune"], data_tune = data_tune_train(
         label, runtime, params_ref)
     del params_ref
+    lap("6t")
     # 6m. the MPMD pipeline: two stage actors on the card, on the same
     # runtime, which the phase shuts down (each worker zeroes and reads its
     # counters)
     paths["mpmd"], mpmd = mpmd_train(label)
+    lap("6m")
     # 6r. RL: PPO and IMPALA on CartPole with their learners on the card,
     # and the LLM policy pool (its engine actor zeroes nothing: its counts
     # must read 0 before the runners)
     rl_paths, rl = rl_train(label)
     paths.update(rl_paths)
+    lap("6r")
+    # 6k. the bench harnesses on the card, on a runtime of its own:
+    # serve_load's rows at GPT-2-small (this process and each engine's
+    # counters) and pipeline_bench's (this process's)
+    bench_paths, bench = bench_harnesses(label)
+    paths.update(bench_paths)
     _runtime_stop()
+    lap("6k")
+    print(f"[time] build to 6k: {sum(laps.values()):.1f} s", flush=True)
 
     # 7. kernels line, card line, result line
     def launches(key):
@@ -5505,6 +5996,7 @@ def main() -> int:
     print("[data-tune] result " + json.dumps(data_tune), flush=True)
     print("[mpmd] result " + json.dumps(mpmd), flush=True)
     print("[rl] result " + json.dumps(rl), flush=True)
+    print("[bench-6k] result " + json.dumps(bench), flush=True)
     print("[serve] result " + json.dumps(serving), flush=True)
     print("[serve-5s] result " + json.dumps(serving_5s), flush=True)
     print("[cluster-6j] result " + json.dumps(cluster), flush=True)

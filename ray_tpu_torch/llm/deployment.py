@@ -189,16 +189,23 @@ class LLMServer:
 
 
 def _engine_options(engine_kwargs: dict) -> dict:
-    """The engine actor owns a card, unless its engine runs on the CPU
+    """The engine actor owns a card, or the share of one that
+    ``engine_kwargs["num_gpus"]`` asks (taken out of ``engine_kwargs``;
+    default 1; a share lets replicas share a card, as the JAX engines share
+    the host's CPUs), unless its engine runs on the CPU
     (``engine_kwargs["device"] == "cpu"``).  A cluster without a ``GPU``
     raises at once: nothing falls back to the CPU."""
+    num_gpus = float(engine_kwargs.pop("num_gpus", 1))
+    if not 0 < num_gpus <= 1:
+        raise ValueError(f"num_gpus={num_gpus}: an engine asks a share of "
+                         f"one card, 0 < num_gpus <= 1")
     if str(engine_kwargs.get("device") or "cuda") == "cpu":
         return {"num_cpus": 0}
-    if ray_tpu_torch.cluster_resources().get("GPU", 0) < 1:
+    if ray_tpu_torch.cluster_resources().get("GPU", 0) < num_gpus:
         raise RuntimeError(
             "the LLM engine runs on a CUDA card, and the cluster has no "
             "GPU; pass engine_kwargs={'device': 'cpu'} to serve on the CPU")
-    return {"num_cpus": 0, "num_gpus": 1}
+    return {"num_cpus": 0, "num_gpus": num_gpus}
 
 
 def llm_deployment(engine_kwargs: Optional[dict] = None, *,

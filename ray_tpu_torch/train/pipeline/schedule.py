@@ -153,6 +153,24 @@ class PipelineOptimizer:
         self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.95),
                                        eps=1e-8, weight_decay=weight_decay)
         self.count = 0
+        self._make_state()
+
+    @torch.no_grad()
+    def _make_state(self) -> None:
+        """Make AdamW's moments and the gradients' buffers now, before the
+        first step's activations, so that step 1 finds the stage at the
+        memory it keeps.  Made lazily, the moments took the blocks step 0's
+        activations had freed, and step 1 took new segments from CUDA
+        (``cudaMalloc``), which stalls while another process uses the
+        card.  AdamW makes its state its own way in a step at lr 0 on
+        zero gradients, which leaves every parameter as it was (the decay
+        multiplies by 1, the update adds -0 times 0); its step count is
+        then set back to 0, so the first real step is the first."""
+        for p in self.params:
+            p.grad = torch.zeros_like(p)
+        self.adamw.step()
+        for state in self.adamw.state.values():
+            state["step"].zero_()
 
     @torch.no_grad()
     def step(self, scale: float) -> None:
@@ -164,7 +182,8 @@ class PipelineOptimizer:
         self.count += 1
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        # in place: each step reuses the buffers _make_state made
+        self.adamw.zero_grad(set_to_none=False)
 
 
 def make_pipeline_optimizer(params, lr: float = 3e-4,

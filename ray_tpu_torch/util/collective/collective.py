@@ -1222,6 +1222,34 @@ class Group:
         self._comm_thread = None
         self._comm_q = None
 
+    def _leave(self) -> None:
+        """Say this rank left the group and wait until every live member
+        has, before ``destroy()`` unlinks the send arena (C24).  A ring
+        relays this rank's chunks between its peers as descriptors of that
+        arena, which a peer attaches only when it reaches them, maybe after
+        this rank's last op returned; a member that left has returned from
+        its last op, so it attached all it needed.  Rank 0 sweeps the
+        group's keys only once all have left, so a rank that finds its own
+        key gone knows they did.  A member that never leaves holds the wait
+        to the rendezvous timeout; without the KV there is no wait."""
+        base = f"{self._prefix}/left/"
+        mine = f"{base}{self.rank}"
+        deadline = time.monotonic() + \
+            RayConfig.collective_rendezvous_timeout_s
+        try:
+            self._kv("kv_put", ns="collective", key=mine, value=b"1",
+                     overwrite=True)
+            while time.monotonic() < deadline:
+                keys = set(self._kv("kv_keys", ns="collective", prefix=base))
+                live = set(range(self.world_size)) - self._dead_ranks \
+                    - self._kv_dead()
+                if mine not in keys or \
+                        all(f"{base}{r}" in keys for r in live):
+                    return
+                time.sleep(0.02)
+        except Exception:
+            return  # the runtime is gone, and every peer with it
+
     def destroy(self):
         if self._incident is not None:
             # destroyed without a rebuild: the failure went unrecovered
@@ -1229,6 +1257,7 @@ class Group:
             self._incident = None
         self._stop_comm_thread()
         self.core.server.handlers.pop(self._handler_name, None)
+        self._leave()
         if self._shm_tx is not None:
             self._shm_tx.close()
             self._shm_tx = None

@@ -202,6 +202,25 @@ class Member:
         finally:
             del g._post_send
 
+    def slow_attach(self, delay_s):
+        """Make every shm descriptor this rank resolves wait ``delay_s``
+        first: a peer that reaches a relayed chunk late."""
+        from ray_tpu_torch.util.collective import collective as ccore
+
+        rx = ccore._groups[self._g()]._shm_rx
+        resolve = rx.resolve
+
+        def late(desc):
+            time.sleep(delay_s)
+            return resolve(desc)
+        rx.resolve = late
+        return True
+
+    def allgather_then_destroy(self, value):
+        got = self.col.allgather(np.asarray(value), group_name=self._g())
+        self.col.destroy_collective_group(self._g())
+        return got
+
     def allgather_then_churn(self, value, churn_value, rounds):
         got = self.col.allgather(np.asarray(value), group_name=self._g())
         for _ in range(rounds):
@@ -643,6 +662,23 @@ def test_allgather_large_results_detached_from_arena(ranks):
     outs = ray_tpu_torch.get([
         a.allgather_then_churn.remote(data[i], churn, 3)
         for i, a in enumerate(actors)])
+    for got in outs:
+        assert len(got) == n
+        for r in range(n):
+            np.testing.assert_array_equal(got[r], data[r])
+
+
+def test_destroy_waits_for_a_peer_still_attaching(ranks):
+    """C24: a ring relays each rank's chunk to the others as a descriptor of
+    its send arena.  Rank 2 attaches every descriptor late, after ranks 0
+    and 1 have their results and destroy the group: their arenas must stay
+    linked until rank 2 has left too."""
+    n = 3
+    actors = _group(ranks[:n], "c24")
+    ray_tpu_torch.get(actors[2].slow_attach.remote(1.0))
+    data = [np.full(64 * 1024, float(i + 1), np.float32) for i in range(n)]
+    outs = ray_tpu_torch.get([a.allgather_then_destroy.remote(data[i])
+                              for i, a in enumerate(actors)], timeout=120)
     for got in outs:
         assert len(got) == n
         for r in range(n):

@@ -377,7 +377,7 @@ def test_user_metrics_api_validation():
 
 def test_wire_contract_snapshot_is_the_ports_tree():
     """``_lint/wire_contract.json`` is the copy's extraction from the
-    port's own tree, byte for byte; no lint checker is registered yet."""
+    port's own tree, byte for byte; the eight checkers are registered."""
     from ray_tpu_torch import _lint
     from ray_tpu_torch._lint import wire_contract as wc
 
@@ -387,8 +387,11 @@ def test_wire_contract_snapshot_is_the_ports_tree():
         assert fh.read() == wc.contract_json(contract)
     assert {"assign_cards", "add_task_events", "get_task_events"} <= set(
         contract["methods"])
-    assert _lint.all_checkers() == {}
-    assert _lint.run_lint(files=files[:3], baseline=None).findings == []
+    assert sorted(_lint.all_checkers()) == [
+        "async-blocking", "collective-timeout", "config-drift",
+        "graph-capture-hygiene", "lock-discipline", "metrics-hygiene",
+        "no-flatten", "wire-contract"]
+    assert _lint.run_lint(files=files, baseline=None).findings == []
 
 
 # ==================================================== on a port runtime

@@ -83,7 +83,13 @@ workflow/__init__.py cluster_utils.py
 runtime_env/pip.py runtime_env/container.py job_submission/__init__.py
 scripts/__init__.py __main__.py autoscaler/__init__.py
 autoscaler/node_provider.py autoscaler/autoscaler.py
-autoscaler/command_runner.py autoscaler/sdk.py autoscaler/monitor.py""".split()
+autoscaler/command_runner.py autoscaler/sdk.py autoscaler/monitor.py
+_lint/checkers/__init__.py _lint/checkers/async_blocking.py
+_lint/checkers/collective_timeout.py _lint/checkers/lock_discipline.py
+_lint/checkers/no_flatten.py _lint/checkers/wire_contract.py
+_lint/checkers/metrics_hygiene.py
+_private/ray_perf.py _private/collective_bench.py
+_private/recovery_bench.py""".split()
 # the session root: ``temp_root()``, under TMPDIR, in place of a fixed /tmp
 CONFIG_IMPORT = ("from ray_tpu_torch._private.config import RayConfig\n",
                  "from ray_tpu_torch._private.config import RayConfig, "
@@ -238,16 +244,23 @@ LLM_ENGINE_CARD = [
             **_engine_options(kwargs)).remote(**kwargs)
 """),
     ("def llm_deployment(engine_kwargs", '''def _engine_options(engine_kwargs: dict) -> dict:
-    """The engine actor owns a card, unless its engine runs on the CPU
+    """The engine actor owns a card, or the share of one that
+    ``engine_kwargs["num_gpus"]`` asks (taken out of ``engine_kwargs``;
+    default 1; a share lets replicas share a card, as the JAX engines share
+    the host's CPUs), unless its engine runs on the CPU
     (``engine_kwargs["device"] == "cpu"``).  A cluster without a ``GPU``
     raises at once: nothing falls back to the CPU."""
+    num_gpus = float(engine_kwargs.pop("num_gpus", 1))
+    if not 0 < num_gpus <= 1:
+        raise ValueError(f"num_gpus={num_gpus}: an engine asks a share of "
+                         f"one card, 0 < num_gpus <= 1")
     if str(engine_kwargs.get("device") or "cuda") == "cpu":
         return {"num_cpus": 0}
-    if ray_tpu_torch.cluster_resources().get("GPU", 0) < 1:
+    if ray_tpu_torch.cluster_resources().get("GPU", 0) < num_gpus:
         raise RuntimeError(
             "the LLM engine runs on a CUDA card, and the cluster has no "
             "GPU; pass engine_kwargs={'device': 'cpu'} to serve on the CPU")
-    return {"num_cpus": 0, "num_gpus": 1}
+    return {"num_cpus": 0, "num_gpus": num_gpus}
 
 
 def llm_deployment(engine_kwargs'''),
@@ -322,6 +335,47 @@ UNPICKLE_ONE_AT_A_TIME = [
 # the host ring takes torch tensors: a CUDA one goes to the host at the
 # op's entry and comes back on its device at the exit
 COLLECTIVE_TENSORS = [
+    # C24: destroy() waits until every live member left before it unlinks
+    # the send arena, which a peer can still attach for a descriptor
+    # relayed in the last op
+    ("""    def destroy(self):
+""", r'''    def _leave(self) -> None:
+        """Say this rank left the group and wait until every live member
+        has, before ``destroy()`` unlinks the send arena (C24).  A ring
+        relays this rank's chunks between its peers as descriptors of that
+        arena, which a peer attaches only when it reaches them, maybe after
+        this rank's last op returned; a member that left has returned from
+        its last op, so it attached all it needed.  Rank 0 sweeps the
+        group's keys only once all have left, so a rank that finds its own
+        key gone knows they did.  A member that never leaves holds the wait
+        to the rendezvous timeout; without the KV there is no wait."""
+        base = f"{self._prefix}/left/"
+        mine = f"{base}{self.rank}"
+        deadline = time.monotonic() + \
+            RayConfig.collective_rendezvous_timeout_s
+        try:
+            self._kv("kv_put", ns="collective", key=mine, value=b"1",
+                     overwrite=True)
+            while time.monotonic() < deadline:
+                keys = set(self._kv("kv_keys", ns="collective", prefix=base))
+                live = set(range(self.world_size)) - self._dead_ranks \
+                    - self._kv_dead()
+                if mine not in keys or \
+                        all(f"{base}{r}" in keys for r in live):
+                    return
+                time.sleep(0.02)
+        except Exception:
+            return  # the runtime is gone, and every peer with it
+
+    def destroy(self):
+'''),
+    ("""        self.core.server.handlers.pop(self._handler_name, None)
+        if self._shm_tx is not None:
+""",
+     """        self.core.server.handlers.pop(self._handler_name, None)
+        self._leave()
+        if self._shm_tx is not None:
+"""),
     ("import socket\nimport threading\n",
      "import socket\nimport sys\nimport threading\n"),
     ("""# ================================================================ public API
@@ -662,6 +716,525 @@ LAUNCHER_GPU = [
             api = FakeGpuCloud("""),
     ("        return TPUNodeProvider(dict(p), config.cluster_name, api=api)",
      "        return GPUNodeProvider(dict(p), config.cluster_name, api=api)")]
+# the JAX rule's jit bodies are the functions a CudaGraphStep captures
+# here (rule graph-capture-hygiene), with the module functions they call
+TRACER_GRAPH_CAPTURE = [
+    ("""jax-tracer-hygiene: host-sync coercions and Python side effects inside
+``jax.jit``/``pjit``-compiled functions.
+
+Inside a traced function, ``float(x)``/``int(x)``/``bool(x)``,
+``np.asarray(x)``, ``.item()`` and ``.tolist()`` force the tracer to
+concretize — at best a silent host sync that serializes the device stream
+(the exact straggler shape the hang watchdog exists to catch), at worst a
+``TracerArrayConversionError`` only on the TPU path that CPU tests never
+exercise.  ``print`` and ``time.*`` run at TRACE time, not per step — a
+classic silent-wrong-observability bug.
+
+Detection: defs decorated with ``jit``/``jax.jit``/``pjit``/
+``partial(jax.jit, ...)``, plus local functions/methods passed to a
+``jax.jit(...)`` call in the same module (``self._step = jax.jit(self._fn)``
+marks ``_fn``).  Numpy calls on literal constants are fine (trace-time
+constant folding) and not flagged.
+""",
+     """graph-capture-hygiene: host syncs and Python side effects inside the
+functions a ``CudaGraphStep`` captures as one CUDA graph.
+
+Inside a captured function, ``float(x)``/``int(x)``/``bool(x)``,
+``np.asarray(x)``, ``.item()``, ``.tolist()``, ``.cpu()``, ``.numpy()`` and
+``torch.cuda.synchronize()`` wait for the card — inside the capture an
+error (a stream being captured may not sync), in the eager warm-up calls a
+stall per minibatch that CPU tests never see.  ``print`` and ``time.*`` run
+once, at CAPTURE time, not per replay — a classic
+silent-wrong-observability bug.
+
+Detection: local functions/methods passed to a ``CudaGraphStep(...)``
+call in the same module, directly, through ``functools.partial(fn, ...)``,
+or through a name bound to either (``step = partial(dqn_minibatch, ...)``
+then ``self._step = CudaGraphStep(step)`` marks ``dqn_minibatch``), plus
+defs decorated with ``CudaGraphStep``, plus the module's functions these
+call by name (they run inside the capture too: ``sac_minibatch`` calls
+``sac_losses``).  Numpy calls on literal constants are fine (host
+constants) and not flagged.
+"""),
+    ('''from typing import Iterable, List, Optional, Set
+
+from ray_tpu_torch._lint.core import Checker, FileCtx, Finding, register
+
+_JIT_NAMES = {"jit", "pjit"}
+_NP_SYNC_FUNCS = {"asarray", "array", "copy"}
+_SYNC_METHODS = {"item", "tolist"}
+_COERCIONS = {"float", "int", "bool"}
+
+
+def _is_jit_expr(node) -> bool:
+    """True for `jit`, `jax.jit`, `pjit`, `partial(jax.jit, ...)`."""
+    if isinstance(node, ast.Name):
+        return node.id in _JIT_NAMES
+    if isinstance(node, ast.Attribute):
+        return node.attr in _JIT_NAMES
+    if isinstance(node, ast.Call):
+        f = node.func
+        fname = getattr(f, "id", None) or getattr(f, "attr", None)
+        if fname == "partial" and node.args:
+            return _is_jit_expr(node.args[0])
+        return _is_jit_expr(f)
+    return False
+
+
+def _jitted_local_names(tree: ast.AST) -> Set[str]:
+    """Names of local defs wrapped by a jit(...) CALL somewhere in the
+    module: `jax.jit(step_fn)`, `jax.jit(self._train_step, ...)`."""
+''',
+     '''from typing import Dict, Iterable, List, Optional, Set
+
+from ray_tpu_torch._lint.core import Checker, FileCtx, Finding, register
+
+_CAPTURE_NAMES = {"CudaGraphStep"}
+_NP_SYNC_FUNCS = {"asarray", "array", "copy"}
+_SYNC_METHODS = {"item", "tolist", "cpu", "numpy", "synchronize"}
+_COERCIONS = {"float", "int", "bool"}
+
+
+def _is_capture_expr(node) -> bool:
+    """True for `CudaGraphStep`, `learner.CudaGraphStep`."""
+    if isinstance(node, ast.Name):
+        return node.id in _CAPTURE_NAMES
+    if isinstance(node, ast.Attribute):
+        return node.attr in _CAPTURE_NAMES
+    return False
+
+
+def _captured_local_names(tree: ast.AST) -> Set[str]:
+    """Names of local defs captured by a CudaGraphStep(...) CALL somewhere
+    in the module: `CudaGraphStep(step_fn)`, `CudaGraphStep(self._fn)`,
+    `CudaGraphStep(partial(fn, ...))`, or a name bound to one of those."""
+'''),
+    ("""        # only `self.<attr>` resolves locally — `jax.jit(other.obj.fn)`
+        # jits a DIFFERENT object's method, which may share a name with a
+        # method here (rllib's env runners do exactly this)
+""",
+     """        # only `self.<attr>` resolves locally — `CudaGraphStep(other.fn)`
+        # captures a DIFFERENT object's method, which may share a name with
+        # a method here
+"""),
+    ("""    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and _is_jit_expr(node.func):
+            for arg in node.args[:1]:
+                tgt = _local_target(arg)
+                if tgt is None and isinstance(arg, ast.Call):
+                    # jax.jit(partial(self._fn, ...))
+                    fname = getattr(arg.func, "id", None) \\
+                        or getattr(arg.func, "attr", None)
+                    if fname == "partial" and arg.args:
+                        tgt = _local_target(arg.args[0])
+""",
+     """    def _target_of(arg) -> Optional[str]:
+        tgt = _local_target(arg)
+        if tgt is None and isinstance(arg, ast.Call):
+            # CudaGraphStep(functools.partial(self._fn, ...))
+            fname = getattr(arg.func, "id", None) \\
+                or getattr(arg.func, "attr", None)
+            if fname == "partial" and arg.args:
+                tgt = _local_target(arg.args[0])
+        return tgt
+
+    # `step = functools.partial(fn, ...)`: the name stands for `fn`
+    bound: Dict[str, str] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            name, value = _local_target(node.targets[0]), \\
+                _target_of(node.value)
+            if name and value and name != value:
+                bound[name] = value
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and _is_capture_expr(node.func):
+            for arg in node.args[:1]:
+                tgt, seen = _target_of(arg), set()
+                while tgt in bound and tgt not in seen:
+                    seen.add(tgt)
+                    tgt = bound[tgt]
+"""),
+    ('''class _TracedBodyVisitor(ast.NodeVisitor):
+    """Flag host-sync shapes inside one traced function body.  Does not
+    descend into nested defs that are themselves fine (closures under jit
+    still trace, so nested defs ARE visited — only lambdas passed to numpy
+    reducers etc. would over-trigger, and those are visited too: inside a
+    traced region everything traces)."""
+''',
+     '''def _with_callees(tree: ast.AST, names: Set[str]) -> Set[str]:
+    """``names`` and every module-level function they call by name, to any
+    depth."""
+    defs = {n.name: n for n in getattr(tree, "body", [])
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+    out, todo = set(names), [n for n in names if n in defs]
+    while todo:
+        for node in ast.walk(defs[todo.pop()]):
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \\
+                    and node.func.id in defs and node.func.id not in out:
+                out.add(node.func.id)
+                todo.append(node.func.id)
+    return out
+
+
+class _CapturedBodyVisitor(ast.NodeVisitor):
+    """Flag host-sync shapes inside one captured function body.  Nested
+    defs ARE visited: a closure called inside the capture runs in it too."""
+'''),
+    ("""            "jax-tracer-hygiene", node,
+            f"{what} inside jit-compiled `{self.fn}` — forces a host sync "
+            f"or runs at trace time, not per step"))
+""",
+     """            "graph-capture-hygiene", node,
+            f"{what} inside graph-captured `{self.fn}` — waits for the "
+            f"card or runs once at capture, not per replay"))
+"""),
+    ("""                                     f"traced value")
+""",
+     """                                     f"device value")
+"""),
+    ("""class TracerHygieneChecker(Checker):
+    name = "jax-tracer-hygiene"
+    description = ("host-sync coercions (float()/np.asarray()/.item()) and "
+                   "trace-time side effects (print/time) inside "
+                   "jit/pjit-compiled functions")
+
+    def check_file(self, ctx: FileCtx) -> Iterable[Finding]:
+        jitted = _jitted_local_names(ctx.tree)
+""",
+     """class GraphCaptureHygieneChecker(Checker):
+    name = "graph-capture-hygiene"
+    description = ("host syncs (.item()/float()/.cpu()/np.asarray()/"
+                   "torch.cuda.synchronize()) and capture-time side effects "
+                   "(print/time) inside functions a CudaGraphStep captures")
+
+    def check_file(self, ctx: FileCtx) -> Iterable[Finding]:
+        decorated = {n.name for n in ast.walk(ctx.tree)
+                     if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                     and any(_is_capture_expr(d) for d in n.decorator_list)}
+        captured = _with_callees(
+            ctx.tree, _captured_local_names(ctx.tree) | decorated)
+"""),
+    ("""            if not (node.name in jitted
+                    or any(_is_jit_expr(d) for d in node.decorator_list)):
+                continue
+            v = _TracedBodyVisitor(ctx, node.name)
+""",
+     """            if node.name not in captured:
+                continue
+            v = _CapturedBodyVisitor(ctx, node.name)
+"""),
+]
+# the harnesses take the device (the card unless "cpu"), the model config
+# and their sizes; on the card the SSE replicas' engines share it
+SERVE_LOAD_BENCH = [
+    ('''this module in a subprocess with its own ``ray_tpu_torch.init``.
+"""
+''',
+     '''this module in a subprocess with its own ``ray_tpu_torch.init``.
+
+Every engine runs on the card unless ``device="cpu"`` is passed;
+``model_config`` replaces the tiny default (the chunked arm sets
+``n_positions = long_len + 256`` on it).  On the card the SSE replicas'
+engines share it, each asking ``1 / num_replicas`` of it.
+"""
+'''),
+    ("""import asyncio
+import json
+""",
+     """import asyncio
+import dataclasses
+import json
+"""),
+    ("""def _run_prefix_arm(enable: bool) -> Dict[str, object]:
+""",
+     """def _run_prefix_arm(enable: bool, device=None,
+                    model_config=None) -> Dict[str, object]:
+"""),
+    ("""    core = EngineCore(seed=0, num_pages=512, page_size=8,
+""",
+     """    core = EngineCore(model_config, seed=0, num_pages=512, page_size=8,
+                      device=device,
+"""),
+    ("""def run_prefix_ab() -> Dict[str, object]:
+    off = _run_prefix_arm(False)
+    on = _run_prefix_arm(True)
+""",
+     """def run_prefix_ab(device=None, model_config=None) -> Dict[str, object]:
+    off = _run_prefix_arm(False, device, model_config)
+    on = _run_prefix_arm(True, device, model_config)
+"""),
+    ("""def _run_chunked_arm(chunk: int, long_len: int) -> Dict[str, float]:
+    from ray_tpu_torch.llm import EngineCore
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config(vocab_size=512, n_positions=long_len + 256,
+                     n_embd=64, n_layer=2, n_head=4)
+    core = EngineCore(cfg, seed=0, num_pages=(long_len + 512) // 16 + 64,
+""",
+     """def _run_chunked_arm(chunk: int, long_len: int, device=None,
+                     model_config=None) -> Dict[str, float]:
+    from ray_tpu_torch.llm import EngineCore
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = dataclasses.replace(
+        model_config or GPT2Config(vocab_size=512, n_embd=64, n_layer=2,
+                                   n_head=4),
+        n_positions=long_len + 256)
+    core = EngineCore(cfg, seed=0, num_pages=(long_len + 512) // 16 + 64,
+                      device=device,
+"""),
+    ("""def run_chunked_ab(long_len: int = 4096) -> Dict[str, object]:
+    unchunked = _run_chunked_arm(0, long_len)
+    chunked = _run_chunked_arm(256, long_len)
+""",
+     """def run_chunked_ab(long_len: int = 4096, device=None,
+                   model_config=None) -> Dict[str, object]:
+    unchunked = _run_chunked_arm(0, long_len, device, model_config)
+    chunked = _run_chunked_arm(256, long_len, device, model_config)
+"""),
+    ("""                 metrics_wait_s: float = 30.0) -> Dict[str, object]:
+""",
+     """                 metrics_wait_s: float = 30.0, device=None,
+                 model_config=None) -> Dict[str, object]:
+"""),
+    ("""                         prefill_chunk_tokens=64)
+""",
+     """                         prefill_chunk_tokens=64, device=device,
+                         model_config=model_config)
+    if str(device or "cuda") != "cpu":
+        engine_kwargs["num_gpus"] = 1 / num_replicas
+"""),
+    ("""def run_serve_load_bench() -> Dict[str, object]:
+""",
+     """def run_serve_load_bench(device=None,
+                         model_config=None) -> Dict[str, object]:
+"""),
+    ("""    out["prefix_ab"] = run_prefix_ab()
+    out["chunked_prefill_ab"] = run_chunked_ab()
+    out["sse_load"] = run_sse_load(num_streams=streams)
+""",
+     """    out["prefix_ab"] = run_prefix_ab(device, model_config)
+    out["chunked_prefill_ab"] = run_chunked_ab(device=device,
+                                               model_config=model_config)
+    out["sse_load"] = run_sse_load(num_streams=streams, device=device,
+                                   model_config=model_config)
+"""),
+]
+PIPELINE_BENCH = [
+    ('''delivers over the serial single gang once each stage owns a core.
+"""
+''',
+     '''delivers over the serial single gang once each stage owns a core.
+
+Every stage runs on the card unless ``device="cpu"`` is passed (all of a
+run's stages on the one card, each driven by its own thread);
+``model_config`` replaces the tiny default.  The seeded full model is
+drawn once a run and each executor takes its stage's slice of it.
+"""
+'''),
+    ("""    import jax.numpy as jnp
+""",
+     """    import torch
+"""),
+    ("""                      n_head=4, dtype=jnp.float32)
+""",
+     """                      n_head=4, dtype=torch.float32)
+"""),
+    ("""def run_pipeline_bench() -> dict:
+    import jax
+
+""",
+     """def run_pipeline_bench(device=None, model_config=None, micros=MICROS,
+                       rounds: int = ROUNDS) -> dict:
+"""),
+    ("""    cfg = _tiny_cfg()
+    # one device per gang: this measures the SCHEDULE, not GSPMD; virtual
+    # multi-device partitioning would only add per-op dispatch overhead
+    mesh = pipeline_mesh(devices=jax.devices()[:1])
+    tokens_per_step = BATCH * SEQ
+
+    out: dict = {
+        "stages": STAGES, "micros": list(MICROS), "rounds": ROUNDS,
+""",
+     """    cfg = model_config or _tiny_cfg()
+    # one device per gang: this measures the SCHEDULE, not GSPMD; virtual
+    # multi-device partitioning would only add per-op dispatch overhead
+    mesh = pipeline_mesh()
+    full = GPT2StageModule(cfg, 0, 1, device="cpu").init_params(0)
+    tokens_per_step = BATCH * SEQ
+
+    out: dict = {
+        "stages": STAGES, "micros": list(micros), "rounds": rounds,
+"""),
+    ("""    for m in MICROS:
+        ex1 = StageExecutor(GPT2StageModule(cfg, 0, 1), mesh, n_micro=m,
+                            lr=1e-3, total_steps=1000)
+        links0, links1 = _direct_links()
+        ex_a = StageExecutor(GPT2StageModule(cfg, 0, STAGES), mesh,
+                             n_micro=m, links=links0, lr=1e-3,
+                             total_steps=1000)
+        ex_b = StageExecutor(GPT2StageModule(cfg, 1, STAGES), mesh,
+                             n_micro=m, links=links1, lr=1e-3,
+                             total_steps=1000)
+""",
+     """    for m in micros:
+        ex1 = StageExecutor(GPT2StageModule(cfg, 0, 1, device=device), mesh,
+                            n_micro=m, lr=1e-3, total_steps=1000,
+                            params=full)
+        links0, links1 = _direct_links()
+        ex_a = StageExecutor(GPT2StageModule(cfg, 0, STAGES, device=device),
+                             mesh, n_micro=m, links=links0, lr=1e-3,
+                             total_steps=1000, params=full)
+        ex_b = StageExecutor(GPT2StageModule(cfg, 1, STAGES, device=device),
+                             mesh, n_micro=m, links=links1, lr=1e-3,
+                             total_steps=1000, params=full)
+"""),
+    ("""        for _ in range(ROUNDS):
+""",
+     """        for _ in range(rounds):
+"""),
+    ("""        ex_b.close()
+    return out
+""",
+     """        ex_b.close()
+        # this M's three executors go before the next M's are made
+        del ex1, ex_a, ex_b
+    return out
+"""),
+    ("""                   quant=None) -> dict:
+""",
+     """                   quant=None, device=None, full=None) -> dict:
+"""),
+    ("""    import threading
+
+    import jax
+
+    from ray_tpu_torch.train.pipeline import (
+        DpGradSync, GPT2StageModule, LocalReplicaGroup, StageExecutor,
+""",
+     """    import threading
+
+    from ray_tpu_torch.train.pipeline import (
+        DpGradSync, GPT2StageModule, LocalReplicaGroup, StageExecutor,
+"""),
+    ("""
+    mesh = pipeline_mesh(devices=jax.devices()[:1])
+    groups = [LocalReplicaGroup(dp) for _ in range(pp)]
+""",
+     """
+    mesh = pipeline_mesh()
+    groups = [LocalReplicaGroup(dp) for _ in range(pp)]
+"""),
+    ("""                GPT2StageModule(cfg, st, pp), mesh, n_micro=n_micro,
+""",
+     """                GPT2StageModule(cfg, st, pp, device=device), mesh,
+                n_micro=n_micro, params=full,
+"""),
+    ("""def run_train_3d_bench() -> dict:
+""",
+     """def run_train_3d_bench(device=None, model_config=None,
+                       configs=TRAIN3D_CONFIGS,
+                       steps: int = TRAIN3D_STEPS) -> dict:
+"""),
+    ("""    cfg = _tiny_cfg()
+    out: dict = {
+        "steps_timed": TRAIN3D_STEPS - 1, "n_micro": TRAIN3D_MICRO,
+""",
+     """    from ray_tpu_torch.train.pipeline import GPT2StageModule
+
+    cfg = model_config or _tiny_cfg()
+    full = GPT2StageModule(cfg, 0, 1, device="cpu").init_params(0)
+    out: dict = {
+        "steps_timed": steps - 1, "n_micro": TRAIN3D_MICRO,
+"""),
+    ("""    for dp, _tp, pp in TRAIN3D_CONFIGS:
+        row = _run_3d_config(cfg, dp, pp, TRAIN3D_MICRO, TRAIN3D_STEPS)
+        if (dp, pp) == (2, 1):
+            fp32_wire = row["wire_bytes"]
+        out["configs"].append(row)
+    int8 = _run_3d_config(cfg, 2, 1, TRAIN3D_MICRO, TRAIN3D_STEPS,
+                          quant="int8")
+""",
+     """    for dp, _tp, pp in configs:
+        row = _run_3d_config(cfg, dp, pp, TRAIN3D_MICRO, steps,
+                             device=device, full=full)
+        if (dp, pp) == (2, 1):
+            fp32_wire = row["wire_bytes"]
+        out["configs"].append(row)
+    int8 = _run_3d_config(cfg, 2, 1, TRAIN3D_MICRO, steps,
+                          quant="int8", device=device, full=full)
+"""),
+]
+RL_BENCH = [
+    ('''minute per arm on CPU.
+"""
+''',
+     '''minute per arm on CPU.
+
+The learner runs on the card unless ``device="cpu"`` is passed.
+"""
+'''),
+    ("""def _build(mode: str, seed: int = 0):
+""",
+     """def _build(mode: str, seed: int = 0, device=None):
+"""),
+    ("""                        else "local")
+              .debugging(seed=seed))
+""",
+     """                        else "local")
+              .learners(device=device)
+              .debugging(seed=seed))
+"""),
+    ('''def _measure_arm(mode: str, seed: int = 0) -> Dict[str, Any]:
+    """One round of one arm: fresh actors, jit warmup outside the clock,
+    then MEASURE_ITERS train() calls."""
+    algo = _build(mode, seed=seed)
+''',
+     '''def _measure_arm(mode: str, seed: int = 0, device=None) -> Dict[str, Any]:
+    """One round of one arm: fresh actors, jit warmup outside the clock,
+    then MEASURE_ITERS train() calls."""
+    algo = _build(mode, seed=seed, device=device)
+'''),
+    ('''def run_rl_bench() -> Dict[str, Any]:
+    """Interleaved best-of-ROUNDS A/B (+ one Sebulba occupancy row)."""
+    rounds = {"relaunch": [], "streaming": []}
+    for i in range(ROUNDS):
+''',
+     '''def run_rl_bench(n_rounds: int = ROUNDS, device=None) -> Dict[str, Any]:
+    """Interleaved best-of-ROUNDS A/B (+ one Sebulba occupancy row)."""
+    rounds = {"relaunch": [], "streaming": []}
+    for i in range(n_rounds):
+'''),
+    ("""            rounds[mode].append(_measure_arm(mode, seed=i))
+""",
+     """            rounds[mode].append(_measure_arm(mode, seed=i, device=device))
+"""),
+    ("""    sebulba = _measure_arm("sebulba")
+    return {
+        "rounds": ROUNDS,
+""",
+     """    sebulba = _measure_arm("sebulba", device=device)
+    return {
+        "rounds": n_rounds,
+"""),
+]
+# the port reads no fake-TPU variables: its cards are faked through
+# CUDA_VISIBLE_DEVICES
+CONFIG_DRIFT = [
+    ("""fake-TPU metadata injected by providers) are bootstrap plumbing, not
+""",
+     """fake memory and disk pressure) are bootstrap plumbing, not
+"""),
+    ("""    # test doubles: fake TPU metadata/pressure the providers read
+    "RAY_TPU_TORCH_FAKE_TPU_CHIPS": "TPU test double",
+    "RAY_TPU_TORCH_FAKE_TPU_POD_TYPE": "TPU test double",
+    "RAY_TPU_TORCH_FAKE_TPU_POD_NAME": "TPU test double",
+    "RAY_TPU_TORCH_FAKE_TPU_WORKER_ID": "TPU test double",
+""",
+     """    # test doubles: fake memory/disk pressure the monitors read (cards are
+    # faked through CUDA_VISIBLE_DEVICES, which is not a RAY_TPU_TORCH_ key)
+"""),
+]
 EDITED_COPIES = {
     "scripts/cli.py": [
         ("import time\n\n_ADDR_FILE",
@@ -754,6 +1327,11 @@ def temp_root() -> str:
                 for its in per_name.values():
                     ray_tpu_torch.kill(its[0]._coord)
 """)],
+    "_lint/checkers/tracer_hygiene.py": TRACER_GRAPH_CAPTURE,
+    "_lint/checkers/config_drift.py": CONFIG_DRIFT,
+    "_private/serve_load_bench.py": SERVE_LOAD_BENCH,
+    "_private/pipeline_bench.py": PIPELINE_BENCH,
+    "_private/rl_bench.py": RL_BENCH,
     "_private/worker.py": [
         ("num_tpus: Optional[float]", "num_gpus: Optional[float]"),
         ("if num_tpus is not None:\n                res[\"TPU\"] = "
