@@ -206,7 +206,22 @@ Phases, each fatal on failure:
      step), its card, peak memory, frames by link, the native channel;
      no new caching-allocator segment in step 1 on any stage (each
      stage reaches its steady memory in step 0); then the f32 step two
-     stages against one, and 6o (b);
+     stages against one, and 6o (b).  Where the machine has the cards
+     (``python3 chip_smoke.py --multi-card mpmd`` on four; on one card
+     the phase prints a line for each that did not run), the
+     multi-card MPMD cases: mpmd-pp2 (a stage a card), mpmd-dp2-pp2 (two
+     replicas over the host ring), and mpmd-tp2 and mpmd-pp2-tp2 (one
+     stage, and two, each sharded over a gang of two NCCL ranks,
+     ``mesh=(1, 2)``, each rank running the flash kernels on its 6 of the
+     12 heads): bf16 losses within phase 6's bf16 bar of one stage's, an
+     f32 step within 1e-5 (loss) and 1e-4 (gradient norm) of one stage's,
+     every rank on a card of its own, every rank's counters set to 0 just
+     before its steps and read just after (flash_fwd, dQ and dK/dV
+     n_layer / stages x 4 a step, no combine or delta launch), each
+     rank's step wall, busy, transfer and bubble time and frame bytes,
+     and a ``kernels`` line of the tp cases' launches;
+     ``--gloo-gang`` runs them on CPU worker actors (gloo) at tiny
+     widths;
   6r. RL (after 6m, on a runtime of its own): (a) PPOConfig at
      tests/test_rllib.py:75-97's config with one learner actor on the card
      must reach a return of 350 within 200,000 env steps, the learner
@@ -859,6 +874,10 @@ def backward_cases(card):
                         >= torch.arange(Sk, device="cuda")[None, :] + ko)
             lib_out = F.scaled_dot_product_attention(lq, lk, lv,
                                                      attn_mask=mask)
+        # delta's yardstick: one call of rowsum(o * g) in f32, on f32
+        # copies made beforehand where o and g are bf16 (no single call
+        # reads bf16 and sums in f32: vecdot of bf16 returns bf16)
+        of, gf = o.float(), g.float()
         fns = {
             "": lambda: flash_attention_bwd(q, k, v, o, lse, g, **kw),
             "plain_": lambda: flash_attention_bwd_plain(q, k, v, o, lse, g,
@@ -867,6 +886,7 @@ def backward_cases(card):
                 lib_out, (lq, lk, lv), g, retain_graph=True),
             "delta_plain_": lambda: flash_bwd_delta_plain(o, g),
             "delta_kernel_": lambda: flash_bwd_delta(o, g),
+            "delta_library_": lambda: torch.linalg.vecdot(of, gf, dim=-1),
         }
         times = {}
         for key, fn in fns.items():
@@ -914,7 +934,8 @@ def backward_cases(card):
               f"{kms['flash_bwd_dq']:.5f}, dkdv {kms['flash_bwd_dkdv']:.5f}; "
               f"the delta kernel alone {kms['flash_bwd_delta']:.5f}) "
               f"plain_ms={times['plain_ms']:.4f} "
-              f"library_ms={times['library_ms']:.5f} bound_ms="
+              f"library_ms={times['library_ms']:.5f} (delta's, "
+              f"vecdot in f32, {times['delta_library_ms']:.5f}) bound_ms="
               f"{bounds['op'][0]:.5f} ({bounds['op'][1]}), ms/bound "
               f"{rows[-1]['ms_over_bound']:.2f}; per kernel bound "
               + " ".join(f"{k[10:]} {v[0]:.5f} ({v[1]}, ms/bound "
@@ -4174,8 +4195,8 @@ def _mpmd_loop(config):
     link's channel runs on the native library, the modules it loaded and
     the kernels it built.  The trainer keeps rank 0's reports only, so
     each worker also writes every report it made to
-    ``stage<k>-r<replica>.json`` under ``config["smoke_dir"]`` (one
-    host)."""
+    ``stage<k>-r<replica>-t<tp rank>.json`` under ``config["smoke_dir"]``
+    (one host)."""
     from ray_tpu_torch import train
     from ray_tpu_torch._native import build
     from ray_tpu_torch.train.pipeline import gpt2_pipeline_loop, schedule
@@ -4224,7 +4245,8 @@ def _mpmd_loop(config):
         if "loss" in metrics:
             seen.setdefault("reports", []).append(metrics)
             if metrics["step"] == config["steps"] - 1:
-                name = f"stage{metrics['stage']}-r{metrics['replica']}.json"
+                name = (f"stage{metrics['stage']}-r{metrics['replica']}"
+                        f"-t{metrics['tp_rank']}.json")
                 with open(os.path.join(config["smoke_dir"], name), "w") as f:
                     json.dump(seen["reports"], f)
         return report(metrics, checkpoint=checkpoint)
@@ -4236,9 +4258,11 @@ def _mpmd_loop(config):
         executor.train_step, train.report = first_step, report
 
 
-def _mpmd_fit(config, n_stages, workers, gpus_per_worker, name, dp=1):
-    """One TorchTrainer fit of ``_mpmd_loop``; (each stage's reports of
-    replica 0, in step order, by stage; the fit's seconds)."""
+def _mpmd_fit(config, n_stages, workers, gpus_per_worker, name, dp=1,
+              tp=1):
+    """One TorchTrainer fit of ``_mpmd_loop`` (``mesh=(dp, tp)``); (the
+    reports of replica 0, in step order, by (stage, tp rank); the fit's
+    seconds)."""
     import tempfile
 
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
@@ -4252,20 +4276,23 @@ def _mpmd_fit(config, n_stages, workers, gpus_per_worker, name, dp=1):
             gpus_per_worker=gpus_per_worker or 1.0),
         run_config=RunConfig(name=name, storage_path=storage),
         pipeline_stages=n_stages, num_microbatches=MPMD_MICRO,
-        mesh=(dp, 1) if dp > 1 else None)
+        mesh=(dp, tp) if dp > 1 or tp > 1 else None)
     t0 = time.perf_counter()
     try:
         trainer.fit()
         fit_s = time.perf_counter() - t0
         hist = {}
         for stage in range(n_stages):
-            with open(os.path.join(storage, f"stage{stage}-r0.json")) as f:
-                hist[stage] = json.load(f)
+            for lane in range(tp):
+                with open(os.path.join(
+                        storage, f"stage{stage}-r0-t{lane}.json")) as f:
+                    hist[(stage, lane)] = json.load(f)
     finally:
         shutil.rmtree(storage, ignore_errors=True)
-    for stage, ms in hist.items():
+    for key, ms in hist.items():
         if [m["step"] for m in ms] != list(range(config["steps"])):
-            raise AssertionError(f"{name} stage {stage} reported {ms}")
+            raise AssertionError(f"{name} (stage, tp rank) {key} reported "
+                                 f"{ms}")
     return hist, fit_s
 
 
@@ -4377,6 +4404,11 @@ def mpmd_train(card_label) -> tuple:
     from ray_tpu_torch.train.pipeline import theoretical_bubble_fraction
 
     t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    for case, (world, _, _) in MPMD_CASES.items():
+        if world > n_cards:
+            print(f"[mpmd] {n_cards} card(s): {case} did not run",
+                  flush=True)
     rt.init(ignore_reinit_error=True)
     session_dir = worker_mod.global_worker().node.session_dir
     try:
@@ -4388,12 +4420,13 @@ def mpmd_train(card_label) -> tuple:
                 "fused:flash_bwd_delta": calls}
         hist2, fit2_s = _mpmd_fit(_mpmd_config("smoke-mpmd2"), MPMD_STAGES,
                                   MPMD_STAGES, 0.5, "smoke-mpmd2")
-        stages = [_stage_line(s, hist2[s], want) for s in range(MPMD_STAGES)]
+        stages = [_stage_line(s, hist2[(s, 0)], want)
+                  for s in range(MPMD_STAGES)]
         buses = {s["pci_bus_id"] for s in stages}
         if {s["device"] for s in stages} != {"cuda:0"} or len(buses) != 1:
             raise AssertionError(f"the stage workers are not on one card: "
                                  f"{[(s['device'], s['pci_bus_id']) for s in stages]}")
-        losses2 = [m["loss"] for m in hist2[0]]
+        losses2 = [m["loss"] for m in hist2[(0, 0)]]
         if not all(np.isfinite(losses2)) or not losses2[-1] < losses2[0]:
             raise AssertionError(f"two-stage losses not finite and falling: "
                                  f"{losses2}")
@@ -4401,9 +4434,9 @@ def mpmd_train(card_label) -> tuple:
         observed = observe_mpmd("smoke-mpmd2", card_label)
         hist1, fit1_s = _mpmd_fit(_mpmd_config("smoke-mpmd1"), 1, 1, 0.5,
                                   "smoke-mpmd1")
-        one = _stage_line(0, hist1[0], {
+        one = _stage_line(0, hist1[(0, 0)], {
             k: v * MPMD_STAGES for k, v in want.items()})
-        losses1 = [m["loss"] for m in hist1[0]]
+        losses1 = [m["loss"] for m in hist1[(0, 0)]]
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses2, losses1))
         if rel > BF16_LOSS_RTOL:
             raise AssertionError(f"two-stage losses {losses2} against one "
@@ -4455,13 +4488,27 @@ def mpmd_train(card_label) -> tuple:
 
 
 # the multi-card MPMD cases (``--multi-card mpmd`` on the cards, their
-# CPU counterparts with ``--gloo-gang``): a stage a card, and two
-# replicas of the two-stage pipeline syncing over the host ring
-MPMD_CASES = {"mpmd-pp2": (2, 1), "mpmd-dp2-pp2": (4, 2)}
+# CPU counterparts with ``--gloo-gang``), (world, dp, tp), the stages
+# world / (dp * tp): a stage a card; two replicas of the two-stage
+# pipeline syncing over the host ring; one stage sharded over tp=2 (a
+# two-card NCCL gang); and two stages of two such gangs
+MPMD_CASES = {"mpmd-pp2": (2, 1, 1), "mpmd-dp2-pp2": (4, 2, 1),
+              "mpmd-tp2": (2, 1, 2), "mpmd-pp2-tp2": (4, 1, 2)}
 # the f32 dp case at the lr of tests/test_pipeline_3d.py's: AdamW turns
 # the f32 reassociation of the replicas' split batch in gradient elements
 # near 0 into whole steps of the lr, which 1e-2 would carry past 1e-4
 MPMD_DP_BATCH, MPMD_DP_LR = 8, 1e-3
+
+
+def _mpmd_lane_line(lines) -> str:
+    """Each rank's step wall, busy, transfer and bubble time (steps 3-10's
+    means) and the tensor bytes of its frames by link, by (stage, tp
+    rank)."""
+    return "; ".join(
+        f"stage {s['stage']} tp rank {s['tp_rank']} (PCI {s['pci_bus_id']}):"
+        f" step_wall_s={s['step_wall_s']:.4f} busy_s={s['busy_s']:.4f} "
+        f"xfer_s={s['xfer_s']:.4f} bubble_s={s['bubble_s']:.4f} frame "
+        f"bytes {s['frame_bytes']}" for s in lines)
 
 
 def mpmd_cases(n_cards, device="cuda") -> tuple:
@@ -4469,10 +4516,19 @@ def mpmd_cases(n_cards, device="cuda") -> tuple:
     own, against one stage, within the bf16 bar; ``mpmd-dp2-pp2``: two
     replicas of it in f32 at batch MPMD_DP_BATCH, each on half the batch,
     syncing gradients over ``util/collective``'s host ring, against one
-    stage on the whole batch, losses within 1e-4.  On the CPU (``device=
-    "cpu"``) the same on CPU worker actors at GLOO_WIDTHS.  Every case runs;
-    (results, failed)."""
+    stage on the whole batch, losses within 1e-4; ``mpmd-tp2`` and
+    ``mpmd-pp2-tp2``: phase 6m's bf16 run with one stage, and with two,
+    each sharded over a tp=2 gang of NCCL ranks (``mesh=(1, 2)``), each
+    rank running the flash kernels on its 6 of the 12 heads: losses within
+    the bf16 bar of one stage's, every rank's counters (n_layer / stages x
+    M a step of flash_fwd, dQ and dK/dV, no combine or delta launch), and
+    an f32 step at batch MPMD_DP_BATCH within 1e-5 (loss) and 1e-4
+    (gradient norm) of one stage's.  Every rank on a card of its own.  On
+    the CPU (``device="cpu"``) the same on CPU worker actors (gloo gangs)
+    at GLOO_WIDTHS, without the counts.  Every case runs; (results,
+    failed)."""
     import ray_tpu_torch as rt
+    from ray_tpu_torch.models import GPT2Config
 
     rt.init(ignore_reinit_error=True)
     cuda = device == "cuda"
@@ -4480,56 +4536,98 @@ def mpmd_cases(n_cards, device="cuda") -> tuple:
     gpus = 1.0 if cuda else 0
     out, failed = {}, []
     steps = TRAIN_STEPS if cuda else 3
+    n_layer = GPT2Config().n_layer if cuda else GLOO_WIDTHS["n_layer"]
     base = {}
     for dtype, batch, lr in (("bfloat16", TRAIN_BATCH, MPMD_LR),
                              ("float32", MPMD_DP_BATCH, MPMD_DP_LR)):
         cfg = _mpmd_config(f"smoke-mpmd-base-{dtype}", dtype, batch, steps,
                            device, widths, lr)
         hist, _ = _mpmd_fit(cfg, 1, 1, gpus, f"smoke-mpmd-base-{dtype}")
-        base[dtype] = [m["loss"] for m in hist[0]]
-    for case, (world, dp) in MPMD_CASES.items():
+        base[dtype] = [(m["loss"], m["grad_norm"]) for m in hist[(0, 0)]]
+    for case, (world, dp, tp) in MPMD_CASES.items():
         if cuda and world > n_cards:
             print(f"[mpmd] {n_cards} card(s): {case} did not run",
                   flush=True)
             continue
+        stages_n = world // (dp * tp)
         dtype, batch, lr = (("float32", MPMD_DP_BATCH, MPMD_DP_LR)
                             if dp > 1 else ("bfloat16", TRAIN_BATCH, MPMD_LR))
+        calls = n_layer // stages_n * MPMD_MICRO * steps
+        want = ({"flash_fwd": calls, "flash_fwd_combine": 0,
+                 "flash_bwd_delta": 0, "flash_bwd_dkdv": calls,
+                 "flash_bwd_dq": calls, "fused:flash_fwd_combine": 0,
+                 "fused:flash_bwd_delta": calls}
+                if cuda and tp > 1 else None)
         try:
             cfg = _mpmd_config(f"smoke-{case}", dtype, batch, steps, device,
                                widths, lr)
-            hist, fit_s = _mpmd_fit(cfg, MPMD_STAGES, world, gpus,
-                                    f"smoke-{case}", dp=dp)
-            stages = [_stage_line(s, hist[s], None)
-                      for s in range(MPMD_STAGES)]
-            losses = [m["loss"] for m in hist[0]]
+            hist, fit_s = _mpmd_fit(cfg, stages_n, world, gpus,
+                                    f"smoke-{case}", dp=dp, tp=tp)
+            lines = [dict(_stage_line(s, hist[(s, j)], want), tp_rank=j)
+                     for s in range(stages_n) for j in range(tp)]
+            losses = [m["loss"] for m in hist[(0, 0)]]
+            want_losses = [x[0] for x in base[dtype]]
             if dp > 1:
-                err = max(abs(a - b) for a, b in zip(losses, base[dtype]))
+                err = max(abs(a - b) for a, b in zip(losses, want_losses))
                 bar_text = f"max abs {err:.3e} (bar 1e-4)"
                 ok = err <= 1e-4
             else:
                 err = max(abs(a - b) / abs(b)
-                          for a, b in zip(losses, base[dtype]))
+                          for a, b in zip(losses, want_losses))
                 bar_text = f"max rel {err:.3e} (bar {BF16_LOSS_RTOL:.3e})"
                 ok = err <= BF16_LOSS_RTOL
-            if cuda and len({s["pci_bus_id"] for s in stages}) != \
-                    MPMD_STAGES:
-                raise AssertionError(f"{case}: the stages share a card: "
-                                     f"{stages}")
+            # the lanes of a stage report its loss, whichever rank
+            if any([m["loss"] for m in hist[(0, j)]] != losses
+                   for j in range(tp)):
+                raise AssertionError(f"{case}: the tp ranks of stage 0 "
+                                     f"report other losses")
+            if cuda and len({s["pci_bus_id"] for s in lines}) != \
+                    len(lines):
+                raise AssertionError(f"{case}: two ranks share a card: "
+                                     f"{[(s['stage'], s['tp_rank'], s['pci_bus_id']) for s in lines]}")
             if not ok:
                 raise AssertionError(f"{case}: losses {losses} against one "
-                                     f"stage's {base[dtype]}: {bar_text}")
+                                     f"stage's {want_losses}: {bar_text}")
+            f32 = None
+            if tp > 1:
+                # the f32 step of the same layout against one stage's
+                cfg = _mpmd_config(f"smoke-{case}-f32", "float32",
+                                   MPMD_DP_BATCH, 1, device, widths,
+                                   MPMD_DP_LR)
+                fhist, _ = _mpmd_fit(cfg, stages_n, world, gpus,
+                                     f"smoke-{case}-f32", dp=dp, tp=tp)
+                f32 = ((fhist[(0, 0)][0]["loss"],
+                        fhist[(0, 0)][0]["grad_norm"]), base["float32"][0])
+                (l2, n2), (l1, n1) = f32
+                if not (abs(l2 - l1) <= F32_LOSS_RTOL * abs(l1)
+                        and abs(n2 - n1) <= F32_NORM_RTOL * abs(n1)):
+                    raise AssertionError(
+                        f"{case}: f32 step (loss, grad norm) {f32[0]} "
+                        f"against one stage's {f32[1]} (bars "
+                        f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})")
         except Exception as err:
             failed.append(f"{case}: {err!r}")
             print(f"[mpmd] {case}: FAILED: {err!r}", flush=True)
             continue
-        out[case] = {"losses": losses, "one_stage_losses": base[dtype],
-                     "stages": stages, "fit_s": fit_s}
+        launches = None
+        if want is not None:
+            launches = {k: sum(s["launches"][k] for s in lines)
+                        for k in lines[0]["launches"]}
+        out[case] = {"losses": losses, "one_stage_losses": want_losses,
+                     "stages": lines, "fit_s": fit_s, "f32_step": f32,
+                     "launches": launches}
         print(f"[mpmd] {case}: TorchTrainer, {world} worker actors "
-              f"({device}), pipeline_stages={MPMD_STAGES}, dp={dp}, "
+              f"({device}), pipeline_stages={stages_n}, dp={dp}, tp={tp}, "
               f"{dtype} batch {batch}: losses {losses} against one stage's "
-              f"{base[dtype]}: {bar_text}; by stage (PCI bus, step_wall_s, "
-              f"busy_s, bubble_s): "
-              f"{[(s['pci_bus_id'], round(s['step_wall_s'], 4), round(s['busy_s'], 4), round(s['bubble_s'], 4)) for s in stages]}",
+              f"{want_losses}: {bar_text}"
+              + ("" if f32 is None else
+                 f"; f32 step at batch {MPMD_DP_BATCH} (loss, grad norm) "
+                 f"{f32[0]} against one stage's {f32[1]} (bars "
+                 f"{F32_LOSS_RTOL}, {F32_NORM_RTOL})")
+              + ("" if want is None else
+                 f"; launches a rank {lines[0]['launches']} (want "
+                 f"{want})")
+              + f"; steps 3-{steps} by rank: {_mpmd_lane_line(lines)}",
               flush=True)
     return out, failed
 
@@ -4544,6 +4642,18 @@ def mpmd_only(card_label) -> int:
     out, failed = mpmd_cases(n_cards)
     _runtime_stop()
     print("[mpmd] result " + json.dumps(out), flush=True)
+    # the tp cases' launches, each rank's counters summed by case
+    counted = {case: r["launches"] for case, r in out.items()
+               if r["launches"]}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source,
+         "launches": sum(c[name] for c in counted.values()),
+         "launches_by_path": {case: c[name] for case, c in counted.items()}}
+        for name, source in (
+            ("flash_fwd", "ray_tpu_torch/csrc/flash_fwd.cu"),
+            ("flash_bwd_dkdv", "ray_tpu_torch/csrc/flash_bwd.cu"),
+            ("flash_bwd_dq", "ray_tpu_torch/csrc/flash_bwd.cu"))]}),
+        flush=True)
     if failed:
         raise AssertionError("MPMD cases failed: " + "; ".join(failed))
     return 0
@@ -5979,8 +6089,11 @@ def main() -> int:
             # plain version together, flash_attention_bwd_plain
             "plain_ms": train_row["delta_plain_ms" if delta else "plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
-            # dq, dk, dv together: the backward of scaled_dot_product_attention
-            "library_ms": None if delta else train_row["library_ms"],
+            # dq, dk, dv together: the backward of
+            # scaled_dot_product_attention; delta: torch.linalg.vecdot in
+            # f32 (on f32 copies of the bf16 o and g)
+            "library_ms": train_row["delta_library_ms" if delta
+                                    else "library_ms"],
             "shape": TRAIN_CASE, "pass": True, **extra,
         })
     # the whole backward op, and every case of phase 3b, on the last entry

@@ -1,17 +1,24 @@
 """The ready-made ``train_loop_per_worker`` for pipeline-parallel GPT-2: the
 port of ``ray_tpu/train/pipeline/loop.py``.
 
-``TorchTrainer(gpt2_pipeline_loop, pipeline_stages=P, mesh=(dp, 1),
-num_microbatches=M, scaling_config=ScalingConfig(num_workers=dp*P))`` gives
-each worker one (replica, stage) cell of the factoring: the worker derives
-its coordinates from its world rank (replica-major; see
-``partition.factor_gang``), builds its stage module on its card,
-rendezvouses its channels over the GCS KV (namespaced per replica), joins
-its stage's cross-replica collective group (``train/{job}/stage{k}/dp``)
-for the bucketed gradient allreduce over the host ring, and drives the 1F1B
+``TorchTrainer(gpt2_pipeline_loop, pipeline_stages=P, mesh=(dp, tp),
+num_microbatches=M, scaling_config=ScalingConfig(num_workers=dp*P*tp))``
+gives each (replica, stage) cell of the factoring a gang of tp workers, one
+card each, under one ``torch.distributed`` world (the JAX worker's tp local
+devices): each worker derives its coordinates from its world rank
+(replica-major; see ``partition.factor_gang``, the gang rank its tp
+index), builds its stage module on its card, sharded over the gang's
+``tp`` mesh when tp > 1, rendezvouses its channels over the GCS KV
+(namespaced per replica and, over tp, per lane: tp rank j of stage s talks
+to tp rank j of stage s±1), joins its lane's cross-replica collective group
+(``train/{job}/stage{k}/dp``, ``.../stage{k}/t{j}/dp`` over tp) for the
+bucketed gradient allreduce over the host ring, and drives the 1F1B
 executor — reporting loss/grad-norm (reduced to stage 0 by the schedule's
 commit frame, dp-mean across replicas) and the bubble/comm/overlap
-accounting through the normal ``train.report`` lockstep.
+accounting through the normal ``train.report`` lockstep.  After the
+row-parallel reduction a stage's output is whole on every tp rank, so each
+lane carries its own copy of every frame (tp copies of each host frame)
+and no broadcast inside the gang is needed.
 
 ``train_loop_config`` keys: ``steps``, ``batch_size`` (GLOBAL batch; each
 replica trains on its contiguous ``batch_size/dp`` row slice), ``seq_len``,
@@ -28,11 +35,13 @@ compute dtype, plus the frame's header (``frame_slot_bytes``).  The JAX
 loop keeps ``connect_links``'s 1 MiB default, which a GPT-2-small
 microbatch overflows.
 
-Checkpoint layout: every stage writes its params as ``pipe_stage.npz``
-keyed by CANONICAL layer names in the flax layout; the trainer's persist
-step files stage 0's under the checkpoint dir and the rest under
-``rank_<k>/``.  Restore merges every shard and re-selects this job's
-slices, so an N-stage checkpoint restores onto any other stage count.
+Checkpoint layout: every stage gathers its params over tp (each rank of
+the gang enters the gather) and its gang rank 0 writes them as
+``pipe_stage.npz`` keyed by CANONICAL layer names in the flax layout; the
+trainer's persist step files stage 0's under the checkpoint dir and the
+rest under ``rank_<k>/``.  Restore merges every shard and re-selects this
+job's slices, each tp rank keeping its shard, so a checkpoint restores
+onto any other stage count and tp.
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ def gpt2_pipeline_loop(config: Dict[str, Any]) -> None:
     from ray_tpu_torch.train.pipeline.dp_sync import DpGradSync
     from ray_tpu_torch.train.pipeline.partition import (
         GPT2StageModule, factor_gang, load_pipeline_checkpoint,
-        save_stage_shard)
+        pipeline_mesh, save_stage_shard)
     from ray_tpu_torch.train.pipeline.schedule import StageExecutor
 
     ctx = train.get_context()
@@ -75,25 +84,20 @@ def gpt2_pipeline_loop(config: Dict[str, Any]) -> None:
     dp = int(pcfg.get("dp", 1))
     tp = int(pcfg.get("tp", 1))
     world = ctx.get_world_size()
-    if world % (dp * n_stages):
+    if world != dp * n_stages * tp:
         raise ValueError(
-            f"num_workers {world} not divisible by dp*pipeline_stages "
-            f"{dp}*{n_stages}")
-    if tp > 1:
-        raise NotImplementedError(
-            f"mesh tp={tp}: a stage sharded over tp inside its worker is "
-            f"not ported, each stage runs on one card (ROADMAP.md A4)")
+            f"num_workers {world} must equal dp * pipeline_stages * tp = "
+            f"{dp} * {n_stages} * {tp}")
     coords = factor_gang(ctx.get_world_rank(), world, dp=dp,
                          n_stages=n_stages)
-    if coords.gang_size != 1 and (n_stages > 1 or dp > 1):
-        raise NotImplementedError(
-            "multi-process stage gangs are not composed yet: use "
-            "num_workers == dp * pipeline_stages")
     stage, replica = coords.stage, coords.replica
     job = config.get("job") or ctx.get_experiment_name()
     # channels rendezvous per REPLICA: each replica runs its own 1F1B
-    # pipeline, so its act/grad links must never cross replicas
+    # pipeline, so its act/grad links must never cross replicas; over tp,
+    # per LANE too: tp rank j of each stage has links of its own
     chjob = job if dp == 1 else f"{job}/r{replica}"
+    if tp > 1:
+        chjob = f"{chjob}/t{coords.gang_rank}"
 
     model_cfg = GPT2Config.tiny()
     overrides = dict(config.get("model") or {})
@@ -114,6 +118,9 @@ def gpt2_pipeline_loop(config: Dict[str, Any]) -> None:
 
     module = GPT2StageModule(model_cfg, stage, n_stages,
                              device=config.get("device"))
+    # over tp, the gang's world (one a stage gang, TorchConfig); None on
+    # one card
+    mesh = pipeline_mesh(module.device)
     itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
     slot_size = frame_slot_bytes(-(-rep_batch // n_micro), seq_len,
                                  model_cfg.n_embd, itemsize)
@@ -138,7 +145,7 @@ def gpt2_pipeline_loop(config: Dict[str, Any]) -> None:
             timeout_s=timeout_s)
 
     executor = StageExecutor(
-        module, n_micro=n_micro, links=links,
+        module, mesh, n_micro=n_micro, links=links,
         lr=float(config.get("lr", 3e-4)), total_steps=max(steps, 101),
         timeout_s=timeout_s, job=chjob, experiment=ctx.get_experiment_name(),
         seed=int(config.get("seed", 0)), dp_sync=dp_sync, replica=replica)
@@ -158,11 +165,14 @@ def gpt2_pipeline_loop(config: Dict[str, Any]) -> None:
             start_step = saved_step + 1
 
     def _checkpoint(step: int):
+        # every tp rank enters the gather; gang rank 0 writes the shard
+        params = executor.gathered_params()
+        if coords.gang_rank:
+            return None
         d = tempfile.mkdtemp()
         save_stage_shard(
-            os.path.join(d, "pipe_stage.npz"), executor.params,
-            stage=stage, n_stages=n_stages, step=step,
-            gather_fns=executor.gather_fns)
+            os.path.join(d, "pipe_stage.npz"), params,
+            stage=stage, n_stages=n_stages, step=step)
         return train.Checkpoint.from_directory(d)
 
     rng_seed = int(config.get("seed", 0))
@@ -197,9 +207,9 @@ def gpt2_pipeline_loop(config: Dict[str, Any]) -> None:
             checkpoint = _checkpoint(step)
         train.report({k: out[k] for k in
                       ("loss", "grad_norm", "step", "stage", "replica",
-                       "step_wall_s", "busy_s", "xfer_s", "bubble_s",
-                       "bubble_fraction", "comm_s", "overlap_fraction",
-                       "dp_wire_bytes")},
+                       "tp_rank", "step_wall_s", "busy_s", "xfer_s",
+                       "bubble_s", "bubble_fraction", "comm_s",
+                       "overlap_fraction", "dp_wire_bytes")},
                      checkpoint=checkpoint)
     executor.close()
     _destroy_dp()

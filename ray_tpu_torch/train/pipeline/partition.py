@@ -10,14 +10,19 @@
   layout, so per-stage checkpoint shards merge back into one tree and
   re-split onto a *different* stage count, and a JAX stage's parameters
   load unchanged (``models/convert.params_from_flax``);
-- a stage runs on one card: ``pipeline_mesh`` and
-  ``make_shard_and_gather_fns`` are the identity there, and a stage
-  sharded over tp raises (``ROADMAP.md`` A4).
+- a stage sharded over tp is a gang of tp workers, one card each, under
+  one ``torch.distributed`` world (the JAX worker's tp local devices):
+  ``pipeline_mesh`` is a one-dim ``tp`` ``DeviceMesh`` over that world
+  (``None`` for a gang of one), ``GPT2StageModule.shard_over`` lays its
+  parameters out as DTensors by ``gpt_partition_rules``, and
+  ``make_shard_and_gather_fns`` moves a leaf between a full host array
+  and its DTensor.  Every rank draws the same full seeded tree and keeps
+  its shard, so a tp stage starts from an unsharded stage's weights.
 
 Unlike the JAX stage, which switches every stage to reference attention
 (``attention_impl="reference"``, a limit of the Pallas kernel under
 GSPMD), the port keeps the config's attention: each stage runs the flash
-kernels.
+kernels, over tp on each rank's share of the heads.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.models.convert import flax_paths, params_from_flax
@@ -41,9 +47,10 @@ from ray_tpu_torch.models.gpt2 import (
     lm_loss,
     run_blocks,
 )
-
-_TP_IN_STAGE = ("a stage sharded over tp inside its worker is not ported: "
-                "each stage runs on one card (ROADMAP.md A4)")
+from ray_tpu_torch.parallel.sharding import (
+    gpt_partition_rules,
+    match_partition_rules,
+)
 
 
 # ------------------------------------------------------------- stage layout
@@ -87,8 +94,11 @@ class GangCoords:
         """Name (= KV-rendezvous key under ``collective/``) of this
         stage's cross-replica collective group: one persistent group per
         stage carrying the gradient allreduce, namespaced by job so two
-        concurrent trainers never collide."""
-        return f"train/{job}/stage{self.stage}/dp"
+        concurrent trainers never collide.  A stage over tp has one a
+        lane: in-gang index j syncs its shards with index j of the other
+        replicas."""
+        lane = f"/t{self.gang_rank}" if self.gang_size > 1 else ""
+        return f"train/{job}/stage{self.stage}{lane}/dp"
 
 
 def factor_gang(world_rank: int, world_size: int, *, dp: int,
@@ -111,14 +121,23 @@ def factor_gang(world_rank: int, world_size: int, *, dp: int,
                       n_stages=n_stages, gang_size=gang_size)
 
 
-# ------------------------------------------------ one card, one stage
-def pipeline_mesh(devices=None, *, max_dp: Optional[int] = None):
-    """The gang-local mesh of one stage: a stage runs on its worker's one
-    card, so there is none (``None``).  More than one device for a stage
-    would shard it over tp, which is not ported and raises."""
-    if devices is not None and len(list(devices)) > 1:
-        raise NotImplementedError(_TP_IN_STAGE)
-    return None
+# ------------------------------------------------------- the stage's mesh
+def pipeline_mesh(device=None):
+    """The gang-local mesh of one stage: a one-dim ``tp`` ``DeviceMesh``
+    over every rank of the initialised process group (``TorchConfig``
+    brings up one world a stage gang, one card a rank), or ``None`` where
+    there is no group or it has one rank: the stage then runs on its
+    worker's card with plain tensors.  ``device`` is the ranks' device
+    type: the card unless ``"cpu"`` is asked for (a gloo gang)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, active_mesh, build_mesh
+
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == 1:
+        return None
+    tp = dist.get_world_size()
+    return active_mesh(build_mesh(MeshConfig(dp=1, tp=tp), device))
 
 
 def _tree_map(fn: Callable, tree, *rest):
@@ -129,23 +148,46 @@ def _tree_map(fn: Callable, tree, *rest):
 
 
 def make_shard_and_gather_fns(partition_specs, mesh=None, dtype_specs=None):
-    """Per-leaf shard/gather callables for a tree of specs: on one card
-    both are the identity (a cast to the leaf of ``dtype_specs`` when
-    given).  A mesh raises: a stage sharded over tp is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(_TP_IN_STAGE)
+    """Per-leaf shard/gather callables for a tree of specs (the
+    ``parallel/sharding`` spec tuples).
 
-    def _pair(_spec, dtype=None):
-        def fn(x):
+    ``shard_fns``: host value -> DTensor on ``mesh`` under the leaf's
+    ``placements``, each rank cutting its own shard of the value every
+    rank holds (``host_to_global``).  ``gather_fns``: DTensor -> full host
+    ndarray (``full_tensor()``, a collective that every rank of the mesh
+    enters); a host value passes as it is.  Both cast to the leaf of
+    ``dtype_specs`` when given.  Without a mesh the shard is the identity
+    too."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import _is_dtensor
+    from ray_tpu_torch.parallel.sharding import host_to_global, placements
+
+    def _pair(spec, dtype=None):
+        def cast(x):
             return x if dtype is None else np.asarray(x).astype(dtype)
 
-        return fn
+        def shard_fn(x):
+            if mesh is None:
+                return cast(x)
+            return host_to_global(torch.as_tensor(np.asarray(cast(x))),
+                                  mesh, placements(spec, mesh))
+
+        def gather_fn(x):
+            if _is_dtensor(x):
+                # a copy: a replicated leaf's full tensor is its local
+                # one, which a later update would change under the array
+                x = x.full_tensor().detach().to("cpu", copy=True).numpy()
+            return cast(x)
+
+        return shard_fn, gather_fn
 
     if dtype_specs is None:
-        fns = _tree_map(_pair, partition_specs)
+        pairs = _tree_map(_pair, partition_specs)
     else:
-        fns = _tree_map(_pair, partition_specs, dtype_specs)
-    return fns, fns
+        pairs = _tree_map(_pair, partition_specs, dtype_specs)
+    return (_tree_map(lambda p: p[0], pairs),
+            _tree_map(lambda p: p[1], pairs))
 
 
 # --------------------------------------------------------- GPT-2 stage module
@@ -189,6 +231,8 @@ class GPT2StageModule(nn.Module):
                                      bias=False)
         self.device = resolve_device(device)
         self.to(self.device)
+        # set by shard_over: the stage's tp mesh and its per-name fns
+        self.mesh = self.shard_fns = self.gather_fns = None
 
     # ------------------------------------------------------------ params
     def param_keys(self) -> List[str]:
@@ -213,17 +257,48 @@ class GPT2StageModule(nn.Module):
         return {k: full_params[k] for k in self.param_keys()}
 
     def flax_params(self) -> Dict[str, Any]:
-        """This stage's parameters as a flax-layout tree of host arrays."""
-        return module_flax_params(self)
+        """This stage's parameters as a flax-layout tree of full host
+        arrays; over tp each is gathered (every rank of the mesh must
+        call this)."""
+        return module_flax_params(self, self.gather_fns)
 
     @torch.no_grad()
     def load_flax_params(self, params: Mapping[str, Any]) -> None:
-        """Copy a flax-layout tree of this stage's keys into the module."""
+        """Copy a flax-layout tree of this stage's keys into the module;
+        over tp each rank copies its own shard."""
         state = params_from_flax(self.select_params(params))
-        missing, unexpected = self.load_state_dict(state, strict=False)
-        if missing or unexpected:
+        own = dict(self.named_parameters())
+        if set(state) != set(own):
             raise KeyError(f"stage {self.stage}: parameters missing "
-                           f"{missing}, unexpected {unexpected}")
+                           f"{sorted(set(own) - set(state))}, unexpected "
+                           f"{sorted(set(state) - set(own))}")
+        for name, p in own.items():
+            if self.shard_fns is None:
+                p.copy_(state[name])
+            else:
+                p.to_local().copy_(self.shard_fns[name](state[name])
+                                   .to_local())
+
+    # ---------------------------------------------------------- sharding
+    def specs(self) -> Dict[str, Any]:
+        """Parameter name -> spec in the torch layout: the JAX stage's
+        ``match_partition_rules(gpt_partition_rules(), params)`` with the
+        two entries of each Dense kernel's spec swapped."""
+        return match_partition_rules(gpt_partition_rules(), self)
+
+    @torch.no_grad()
+    def shard_over(self, mesh) -> None:
+        """Every parameter replaced by its DTensor on ``mesh`` (the stage's
+        ``tp`` mesh), each rank keeping its shard of the value it holds:
+        Megatron's column- and row-parallel layout, so attention runs on
+        each rank's share of the heads."""
+        from ray_tpu_torch.models.pretrain import distribute
+
+        specs = self.specs()
+        self.shard_fns, self.gather_fns = make_shard_and_gather_fns(
+            specs, mesh)
+        distribute(self, mesh, specs)
+        self.mesh = mesh
 
     # ----------------------------------------------------------- forward
     def forward(self, x, batch):
@@ -232,7 +307,9 @@ class GPT2StageModule(nn.Module):
         cfg = self.config
         if self.is_first:
             ids = batch["input_ids"]
-            x = (_embed(self.wte.weight, ids, cfg.dtype)
+            embed = (_vocab_parallel_embed if self.mesh is not None
+                     else _embed)
+            x = (embed(self.wte.weight, ids, cfg.dtype)
                  + self.wpe.weight[:ids.shape[1]].to(cfg.dtype))
         x, _ = run_blocks([self.h[str(i)] for i in range(self.lo, self.hi)],
                           x, cfg)
@@ -243,13 +320,42 @@ class GPT2StageModule(nn.Module):
         return lm_loss(logits, batch["targets"], batch.get("mask"))
 
 
-def module_flax_params(model: nn.Module) -> Dict[str, Any]:
+def _vocab_parallel_embed(table, ids, dtype: torch.dtype):
+    """The rows ``ids`` of ``table``, a DTensor whose vocab dim is sharded
+    over a one-dim tp mesh, in ``dtype``: Megatron's vocab-parallel lookup.
+    Each rank looks the ids up in its own rows (zeros for the others'),
+    and a sum over tp, an all-reduce of the (B, S, E) activations, gives
+    every rank the rows; bit for bit the lookup in the whole table, which
+    is never gathered (``models/gpt2._embed`` gathers it, a vocab x
+    n_embd transient on every call).  The gradient reaches the table as
+    its own shard."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = table.device_mesh
+    local = table.to_local()
+    # torch.chunk's split, as Shard(0) cuts the rows
+    lo = mesh.get_local_rank() * -(-table.shape[0] // mesh.size())
+    ids = ids.to_local() if isinstance(ids, DTensor) else ids
+    inside = (ids >= lo) & (ids < lo + local.shape[0])
+    rows = F.embedding((ids - lo).clamp(0, max(local.shape[0] - 1, 0)),
+                       local.to(dtype))
+    part = rows * inside.unsqueeze(-1).to(dtype)
+    return DTensor.from_local(part, mesh, [Partial()],
+                              run_check=False).redistribute(
+                                  mesh, [Replicate()])
+
+
+def module_flax_params(model: nn.Module, gather_fns=None) -> Dict[str, Any]:
     """A port GPT-2 model's (or stage's) parameters as the flax tree
-    ``params_from_flax`` reads: f32 host arrays, Dense kernels (in, out)."""
+    ``params_from_flax`` reads: f32 host arrays, Dense kernels (in, out).
+    ``gather_fns`` (by parameter name) gathers DTensor parameters."""
     paths = flax_paths(model)
     flat = {}
     for name, p in model.named_parameters():
-        arr = p.detach().float().cpu().numpy()
+        if gather_fns is not None:
+            arr = gather_fns[name](p.detach().float())
+        else:
+            arr = p.detach().float().to("cpu", copy=True).numpy()
         path = paths[name]
         if path.endswith("/kernel"):
             arr = arr.T

@@ -8,7 +8,8 @@ the executor is a dumb interpreter: no control flow depends on timing.
 ``one_f_one_b``, ``PipelineOp``, ``BubbleClock`` and
 ``theoretical_bubble_fraction`` are copies.
 
-``StageExecutor`` runs that op list over a ``GPT2StageModule`` on its card.
+``StageExecutor`` runs that op list over a ``GPT2StageModule`` on its card,
+or over a stage gang of tp cards (``mesh``, the stage's ``tp`` mesh).
 Where the JAX executor's forward and backward are jit/vjp calls that
 recompute the stage forward in the backward, the port keeps each in-flight
 microbatch's autograd graph from its forward (its output, and its received
@@ -23,6 +24,18 @@ updates the parameters without a clip of its own.  Activations and
 gradients cross the links as CPU tensors in the compute dtype (bf16
 included), through the port's tensor serializer.  Per-op wall clock is
 split into compute / transfer / wait buckets.
+
+Over tp (the JAX executor's GSPMD stage, ``ray_tpu/train/pipeline/
+schedule.py:185-196,240-262``) the parameters, gradients and AdamW's state
+are DTensors laid out by ``gpt_partition_rules``, and each tp rank of a
+stage talks to the same tp rank of the next (a lane): the stage's output
+leaves as the local tensor of a replicated DTensor (after the
+row-parallel reduction every rank holds all of it), and an incoming
+activation or gradient frame is wrapped as one.  Each microbatch's
+gradients accumulate in DTensors laid out as their parameters
+(``PipelineOptimizer``), AdamW steps each rank's local shards, and the
+norm counts each element once: the sharded gradients' sums of squares
+summed over tp, the replicated ones added as they are.
 """
 
 from __future__ import annotations
@@ -33,9 +46,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch._private import fault_injection
 from ray_tpu_torch.models.pretrain import warmup_cosine_decay
+from ray_tpu_torch.ops.attention import _is_dtensor
 from ray_tpu_torch.train.pipeline import channels as pipechan
 
 # op kinds, in the order they appear inside one microbatch's slot
@@ -144,13 +159,24 @@ class PipelineOptimizer:
     ``models/pretrain.Optimizer`` without its clip: ``step(scale)`` first
     multiplies every gradient by ``scale`` (the 1/M mean times the clip
     scale the stages agreed on), then takes AdamW at the schedule's rate
-    for the update count before this one."""
+    for the update count before this one.
+
+    DTensor parameters (a stage over tp) are updated through their local
+    shards, as ``models/pretrain.Optimizer`` updates them: AdamW is
+    elementwise, so that is exact, and its state lives beside each shard.
+    Each one's gradient is a DTensor laid out as the parameter, made once
+    (``_make_state``): the backward adds each microbatch's gradient into
+    it in place, redistributed to that layout, and ``grads()`` are its
+    local shards."""
 
     def __init__(self, params, lr: float, weight_decay: float, warmup: int,
                  total_steps: int):
         self.params = list(params)
+        with torch.no_grad():
+            self.local = [p.to_local() if _is_dtensor(p) else p
+                          for p in self.params]
         self.lr, self.warmup, self.total_steps = lr, warmup, total_steps
-        self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.95),
+        self.adamw = torch.optim.AdamW(self.local, lr=0.0, betas=(0.9, 0.95),
                                        eps=1e-8, weight_decay=weight_decay)
         self.count = 0
         self._make_state()
@@ -165,16 +191,23 @@ class PipelineOptimizer:
         card.  AdamW makes its state its own way in a step at lr 0 on
         zero gradients, which leaves every parameter as it was (the decay
         multiplies by 1, the update adds -0 times 0); its step count is
-        then set back to 0, so the first real step is the first."""
-        for p in self.params:
+        then set back to 0, so the first real step is the first.  A
+        DTensor parameter's gradient is a DTensor (so the backward
+        accumulates into it), and its local shard the buffer AdamW reads."""
+        for p, local in zip(self.params, self.local):
             p.grad = torch.zeros_like(p)
+            if local is not p:
+                local.grad = p.grad.to_local()
         self.adamw.step()
         for state in self.adamw.state.values():
             state["step"].zero_()
 
+    def grads(self) -> List[torch.Tensor]:
+        return [p.grad for p in self.local]
+
     @torch.no_grad()
     def step(self, scale: float) -> None:
-        torch._foreach_mul_([p.grad for p in self.params], scale)
+        torch._foreach_mul_(self.grads(), scale)
         for group in self.adamw.param_groups:
             group["lr"] = warmup_cosine_decay(self.count, self.lr,
                                               self.warmup, self.total_steps)
@@ -207,7 +240,10 @@ class StageExecutor:
     Owns the stage module and its optimizer on the stage's card, its links
     to the adjacent stages, and the bubble accounting.  ``params`` (a
     flax-layout tree) are the initial parameters; without them the module
-    draws its slice of the seeded full model."""
+    draws its slice of the seeded full model.  With ``mesh`` (the stage's
+    ``tp`` mesh, ``partition.pipeline_mesh``) the module is sharded over
+    it; every rank of the mesh runs this executor over its own lane of
+    ``links``."""
 
     def __init__(self, module, mesh=None, *, n_micro: int = 1,
                  links: Optional[Dict[str, Any]] = None,
@@ -224,6 +260,7 @@ class StageExecutor:
         self.n_stages = module.n_stages
         self.n_micro = int(n_micro)
         self.mesh = mesh
+        self.tp_rank = 0 if mesh is None else mesh.get_local_rank()
         self.device = module.device
         self.links = links or {}
         self.clip_norm = float(clip_norm)
@@ -245,8 +282,12 @@ class StageExecutor:
         self.frame_bytes: Dict[str, int] = {}
 
         host_params = params if params is not None else module.init_params(seed)
+        # the checkpoint's fns over the host tree ``params`` gives: a
+        # gathered leaf passes as it is
         self.shard_fns, self.gather_fns = make_shard_and_gather_fns(
-            host_params, mesh)
+            host_params)
+        if mesh is not None and module.mesh is None:
+            module.shard_over(mesh)
         module.load_flax_params(host_params)
         module.train()
         self._lr, self._total_steps = lr, total_steps
@@ -256,7 +297,9 @@ class StageExecutor:
     # -------------------------------------------------------------- params
     @property
     def params(self) -> Dict[str, Any]:
-        """The stage's parameters as a flax-layout tree of host arrays."""
+        """The stage's parameters as a flax-layout tree of full host
+        arrays, gathered over tp (a collective: every rank of the mesh
+        calls it)."""
         return self.module.flax_params()
 
     def gathered_params(self) -> Dict[str, Any]:
@@ -264,8 +307,8 @@ class StageExecutor:
 
     def load_full_params(self, full_tree: Dict[str, Any]) -> None:
         """Load this stage's slice out of a merged full-model tree — the
-        restore half of the stage-count-independent checkpoint — with a
-        fresh optimizer state."""
+        restore half of the stage-count-independent checkpoint, each tp
+        rank keeping its shard — with a fresh optimizer state."""
         self.module.load_flax_params(full_tree)
         self.opt = make_pipeline_optimizer(self.module.parameters(),
                                            self._lr,
@@ -274,6 +317,25 @@ class StageExecutor:
     # --------------------------------------------------------------- step
     def _to_device(self, t) -> torch.Tensor:
         return torch.as_tensor(t).to(self.device, non_blocking=True)
+
+    def _on_mesh(self, t: torch.Tensor):
+        """``t``, which every rank of the stage holds whole, as a
+        replicated DTensor over tp (as it is on one card)."""
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(t, self.mesh, [Replicate()],
+                                  run_check=False)
+
+    def _replicated(self, t):
+        """A stage output or loss over tp as the replicated DTensor whose
+        local tensor every rank holds whole."""
+        if not _is_dtensor(t):
+            return t
+        from torch.distributed.tensor import Replicate
+
+        return t.redistribute(self.mesh, [Replicate()])
 
     def _micro_batch(self, batch, i):
         if batch is None:
@@ -285,7 +347,7 @@ class StageExecutor:
                 f"{self.n_micro}")
         lo = (b // self.n_micro) * i
         hi = lo + b // self.n_micro
-        return {k: self._to_device(np.asarray(v[lo:hi])).long()
+        return {k: self._on_mesh(self._to_device(np.asarray(v[lo:hi])).long())
                 for k, v in batch.items()}
 
     def _send(self, link: str, tag: str, payload: Any, nbytes: int,
@@ -295,9 +357,21 @@ class StageExecutor:
 
     def _grad_norm_sq(self) -> float:
         """The sum of squares of the accumulated gradients, in f32, over
-        M² (the norm of the microbatch mean)."""
-        grads = [p.grad for p in self.module.parameters()]
-        sq = torch.stack([g.float().pow(2).sum() for g in grads]).sum()
+        M² (the norm of the microbatch mean).  Over tp each element counts
+        once: the local sums of the sharded gradients are summed over the
+        mesh in one all-reduce, and those of the replicated ones, equal on
+        every rank, are added as they are."""
+        grads = self.opt.grads()
+        if self.mesh is None:
+            sq = torch.stack([g.float().pow(2).sum() for g in grads]).sum()
+            return float(sq) / float(self.n_micro) ** 2
+        parts = {True: [], False: []}
+        for p, g in zip(self.opt.params, grads):
+            parts[any(pl.is_shard() for pl in p.placements)].append(
+                g.float().pow(2).sum())
+        sharded = torch.stack(parts[True]).sum()
+        dist.all_reduce(sharded, group=self.mesh.get_group())
+        sq = sharded + torch.stack(parts[False]).sum()
         return float(sq) / float(self.n_micro) ** 2
 
     def train_step(self, batch) -> Dict[str, Any]:
@@ -339,14 +413,17 @@ class StageExecutor:
             elif op.kind == "fwd":
                 mb = self._micro_batch(batch, i) if (
                     mod.is_first or mod.is_last) else None
-                outs[i] = mod(acts.get(i), mb)
+                x = acts.get(i)
+                outs[i] = self._replicated(
+                    mod(None if x is None else self._on_mesh(x), mb))
                 if sync:
                     # sync here, not in send_act: the next op copies this
                     # value to the host anyway, and an async launch would
                     # charge the compute tail to the transfer bucket
                     torch.cuda.synchronize(self.device)
             elif op.kind == "send_act":
-                y = _to_host(outs[i])
+                out = outs[i]
+                y = _to_host(out.to_local() if _is_dtensor(out) else out)
                 self._send("act_out", f"{step}.a{i}", y,
                            y.numel() * y.element_size(), tmo)
             elif op.kind == "recv_grad":
@@ -360,10 +437,12 @@ class StageExecutor:
             elif op.kind == "bwd":
                 out = outs.pop(i)
                 if mod.is_last:
+                    if _is_dtensor(out):
+                        out = out.to_local()
                     losses.append(float(out.detach()))
                     out.backward()
                 else:
-                    torch.autograd.backward(out, self._g_in)
+                    torch.autograd.backward(out, self._on_mesh(self._g_in))
                     self._g_in = None
                 x = acts.pop(i, None)
                 self._gx = None if x is None else x.grad
@@ -373,11 +452,13 @@ class StageExecutor:
                     # bucket-ready hook: the accumulated grads are final
                     # the moment the last backward microbatch lands —
                     # launch the bucketed dp allreduces NOW so the wire
-                    # overlaps the remaining drain
+                    # overlaps the remaining drain (over tp, each lane
+                    # syncs its rank's shards)
                     tc = time.monotonic()
                     self.dp_sync.launch(
-                        {name: p.grad.detach().float().cpu().numpy()
-                         for name, p in mod.named_parameters()})
+                        {name: g.detach().float().cpu().numpy()
+                         for (name, _), g in zip(mod.named_parameters(),
+                                                 self.opt.grads())})
                     self._op_comm_s += time.monotonic() - tc
             elif op.kind == "send_grad":
                 g = _to_host(self._gx)
@@ -398,8 +479,9 @@ class StageExecutor:
                     tc = time.monotonic()
                     grads_red = self.dp_sync.wait_all(timeout_s=tmo)
                     with torch.no_grad():
-                        for name, p in mod.named_parameters():
-                            p.grad.copy_(torch.from_numpy(grads_red[name]))
+                        for (name, _), g in zip(mod.named_parameters(),
+                                                self.opt.grads()):
+                            g.copy_(torch.from_numpy(grads_red[name]))
                     self._op_comm_s += time.monotonic() - tc
                     commit = self._commit_dp(losses, step, tmo)
                 else:
@@ -421,7 +503,7 @@ class StageExecutor:
         out.update({"loss": commit["loss_mean"],
                     "grad_norm": commit["gnorm"],
                     "stage": self.stage, "step": step,
-                    "replica": self.replica,
+                    "replica": self.replica, "tp_rank": self.tp_rank,
                     "overlap_fraction":
                         self.dp_sync.last_overlap_fraction()
                         if self.dp_sync is not None else 0.0,

@@ -12,11 +12,12 @@ tensors on its card.
 Worker placement -> ranks: world rank i = bundle i of the gang's placement
 group, and a worker's local rank is its place among the workers on its
 node.  With ``pipeline_stages`` or ``dp_replicas`` (set by
-``TorchTrainer(pipeline_stages=N, mesh=(dp, 1))``) the worker group
-factors replica-major into dp × N contiguous gangs, each its own world:
-stages exchange channel frames and replicas sync over the host collective
-ring, never through torch.distributed, so MPMD gangs of one worker bring
-up no process group, and only they may take a share of a card
+``TorchTrainer(pipeline_stages=N, mesh=(dp, tp))``) the worker group
+factors replica-major into dp × N contiguous gangs of tp workers, each its
+own world: a stage's tp ranks shard it over NCCL, while stages exchange
+channel frames and replicas sync over the host collective ring, never
+through torch.distributed, so MPMD gangs of one worker (tp 1) bring up no
+process group, and only they may take a share of a card
 (``ScalingConfig(gpus_per_worker=0.5)``).  The device follows
 ``ScalingConfig.use_gpu``.  The nodelet gives each
 GPU worker's lease its own card (``CUDA_VISIBLE_DEVICES``); before CUDA
@@ -80,9 +81,10 @@ class TorchConfig(BackendConfig):
     # MPMD pipeline layout (set by TorchTrainer(pipeline_stages=N)): the
     # worker group splits into N contiguous stage gangs, each its own world
     pipeline_stages: int = 1
-    # data-parallel replicas of the pipeline (TorchTrainer(mesh=(dp, 1))):
+    # data-parallel replicas of the pipeline (TorchTrainer(mesh=(dp, tp))):
     # the group factors replica-major into dp_replicas × pipeline_stages
-    # gangs; replicas sync gradients over the host collective ring
+    # gangs of tp workers; replicas sync gradients over the host
+    # collective ring
     dp_replicas: int = 1
 
     @property
@@ -92,13 +94,14 @@ class TorchConfig(BackendConfig):
 
 def check_card_share(gpus_per_worker: float, gang: int) -> None:
     """A share of a card (0 < gpus_per_worker < 1) is for gangs of one
-    worker, which bring up no process group; a gang of more forms one, and
-    NCCL puts no two ranks on one card."""
+    worker, which bring up no process group; a gang of more (an SPMD gang,
+    or an MPMD stage over tp > 1) forms one, and NCCL puts no two ranks on
+    one card."""
     if 0 < gpus_per_worker < 1 and gang > 1:
         raise ValueError(
             f"gpus_per_worker={gpus_per_worker:g}: a share of a card is for "
             f"gangs of one worker (num_workers=1, or MPMD stage gangs: "
-            f"pipeline_stages or mesh with num_workers == dp * "
+            f"pipeline_stages or mesh=(dp, 1) with num_workers == dp * "
             f"pipeline_stages); this layout puts "
             f"{gang} workers in one torch.distributed gang, which needs a "
             f"card for each")

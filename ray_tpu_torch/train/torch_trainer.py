@@ -36,10 +36,13 @@ gangs, each gang its OWN world (no cross-stage process group — stages talk
 through channel frames), and the train loop sees ``_pipeline`` =
 ``{"n_stages": N, "n_micro": M, "dp": dp, "tp": tp}`` in its config.
 ``num_microbatches`` is the gradient-accumulation width of the 1F1B
-schedule, and ``mesh=(dp, 1)`` adds ``dp`` data-parallel replicas, each
-stage's replicas syncing gradients over the host collective ring;
-``num_workers`` must equal ``dp * pipeline_stages`` then.  Gangs of one
-worker bring up no process group, so their workers may share a card
+schedule, and ``mesh=(dp, tp)`` adds ``dp`` data-parallel replicas, each
+stage's replicas syncing gradients over the host collective ring, and
+shards each stage over ``tp`` cards: a stage gang of ``tp`` workers, one
+card each, under one NCCL world (the JAX worker's tp local devices).
+``num_workers`` must equal ``dp * pipeline_stages * tp`` whenever
+``pipeline_stages``, dp or tp is above 1.  Gangs of one worker bring up
+no process group, so their workers may share a card
 (``ScalingConfig(gpus_per_worker=0.5)``)::
 
     trainer = TorchTrainer(
@@ -105,25 +108,23 @@ class TorchTrainer(DataParallelTrainer):
         torch_config = torch_config or TorchConfig()
         scaling_config = scaling_config or ScalingConfig()
         num_workers = scaling_config.num_workers
-        if pipeline_stages > 1 or dp > 1:
-            if dp > 1:
-                if num_workers != dp * pipeline_stages:
-                    raise ValueError(
-                        f"num_workers {num_workers} must equal dp * "
-                        f"pipeline_stages = {dp} * {pipeline_stages} (each "
-                        f"stage runs on its worker's card)")
-            elif num_workers % pipeline_stages:
+        mpmd = pipeline_stages > 1 or dp > 1 or tp > 1
+        # a gang of more than one worker forms a process group: first,
+        # since a wrong worker count names the share it was given
+        check_card_share(
+            scaling_config._worker_resources.get("GPU", 0.0),
+            max(tp, num_workers // (pipeline_stages * dp)) if mpmd
+            else num_workers)
+        if mpmd:
+            if num_workers != dp * pipeline_stages * tp:
                 raise ValueError(
-                    f"num_workers {num_workers} not divisible by "
-                    f"pipeline_stages {pipeline_stages}")
+                    f"num_workers {num_workers} must equal dp * "
+                    f"pipeline_stages * tp = {dp} * {pipeline_stages} * "
+                    f"{tp} (each stage a gang of tp workers, a card each)")
             torch_config = dataclasses.replace(
                 torch_config, pipeline_stages=pipeline_stages,
                 dp_replicas=dp)
-        check_card_share(
-            scaling_config._worker_resources.get("GPU", 0.0),
-            num_workers // (torch_config.pipeline_stages
-                            * torch_config.dp_replicas))
-        if pipeline_stages > 1 or num_microbatches > 1 or dp > 1 or tp > 1:
+        if mpmd or num_microbatches > 1:
             train_loop_config = dict(train_loop_config or {})
             train_loop_config["_pipeline"] = {
                 "n_stages": pipeline_stages, "n_micro": num_microbatches,
