@@ -52,6 +52,7 @@ from ray_tpu_torch.parallel.sharding import (
     match_partition_rules,
     placements,
 )
+from ray_tpu_torch.util.tracing import device_span
 
 WARMUP = 100  # the JAX trainer's make_optimizer default
 # the batch's layout: rows over (dp, fsdp), positions over sp
@@ -232,13 +233,18 @@ def train_step(model: nn.Module, opt: Optimizer,
                batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """One forward, backward, clip and AdamW update; returns the loss
     (0-dim, on the device, not synchronised; for a sharded model the
-    global loss, on every rank)."""
+    global loss, on every rank).  Under a recording profiler the three
+    phases are the spans ``train.forward``, ``train.backward`` and
+    ``train.optimizer``."""
     opt.zero_grad()
-    loss = loss_fn(model, batch)
-    if _is_dtensor(loss):
-        loss = loss.full_tensor()
-    loss.backward()
-    opt.step()
+    with device_span("train.forward"):
+        loss = loss_fn(model, batch)
+        if _is_dtensor(loss):
+            loss = loss.full_tensor()
+    with device_span("train.backward"):
+        loss.backward()
+    with device_span("train.optimizer"):
+        opt.step()
     return loss.detach()
 
 
@@ -373,7 +379,10 @@ class ShardedPretrainer:
         return out
 
     def step(self, batch: Mapping[str, Any]) -> torch.Tensor:
-        return train_step(self.model, self.opt, self.shard_batch(batch))
+        """``train_step`` on ``batch`` placed by ``shard_batch``; under a
+        recording profiler, the span ``train.step``."""
+        with device_span("train.step"):
+            return train_step(self.model, self.opt, self.shard_batch(batch))
 
     def tokens_per_batch(self, batch) -> int:
         ids = batch["input_ids"]

@@ -55,6 +55,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ray_tpu_torch.util.tracing import device_span
+
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30
@@ -80,6 +82,13 @@ KERNEL_LAUNCHES = {"flash_fwd": 0, "flash_fwd_combine": 0,
 # ``flash_bwd_dq`` launches that computed delta in their prologue.  Counted
 # where those launches are, beside ``KERNEL_LAUNCHES``.
 FUSED_LAUNCHES = {"flash_fwd_combine": 0, "flash_bwd_delta": 0}
+# The work each call of ``flash_attention_fwd`` and ``flash_attention_bwd``
+# asked for, on the CPU and on the card, counted by the call where it
+# returns and nowhere else: FLOPs of the visible query-key pairs (4 per pair
+# and head dimension forward, 8 backward) and bytes of each input read once
+# and each output written once (``_count_work``).
+KERNEL_WORK = {call: {"calls": 0, "flops": 0, "bytes": 0}
+               for call in ("flash_fwd", "flash_bwd")}
 # What the last CUDA launch of the flash forward chose: variant, splits,
 # grid, where the splits were merged, and which inputs it copied to aligned
 # memory.
@@ -217,6 +226,43 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
         lse[:, :, iq * block_q:(iq + 1) * block_q] = torch.where(
             l == 0.0, NEG_INF, m + torch.log(l_safe))
     return out[:, :, :s_q].to(q.dtype), lse[:, :, :s_q]
+
+
+# ============================================================ the work
+def visible_pairs(s_q: int, s_k: int, causal: bool, q_offset: int,
+                  k_offset: int) -> int:
+    """Query-key pairs that attention computes: all ``s_q * s_k``, or
+    under ``causal`` those with ``i + q_offset >= j + k_offset``."""
+    if not causal:
+        return s_q * s_k
+    d = q_offset - k_offset
+    # rows before lo see no key; rows in [lo, hi) see i + d + 1 keys; rows
+    # from hi on see all s_k
+    lo = min(max(-d, 0), s_q)
+    hi = min(max(s_k - d - 1, lo), s_q)
+    return (hi - lo) * (lo + hi + 2 * d + 1) // 2 + (s_q - hi) * s_k
+
+
+# each call's FLOPs per visible pair and head dimension (two products
+# forward, four backward), and how many (rows, D) tensors of each side it
+# reads or writes once: forward q, o and k, v; backward q, o, g, dq and
+# k, v, dk, dv
+_WORK_RULE = {"flash_fwd": (4, 2), "flash_bwd": (8, 4)}
+
+
+def _count_work(call: str, q, k, causal: bool, q_offset: int,
+                k_offset: int) -> None:
+    """Add one call's work to ``KERNEL_WORK[call]``, from q (B, H, Sq, D),
+    k (B, H, Sk, D) and the f32 lse (B, H, Sq) that both calls move."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    per_pair, tensors = _WORK_RULE[call]
+    work = KERNEL_WORK[call]
+    work["calls"] += 1
+    work["flops"] += per_pair * b * h * d * visible_pairs(
+        s_q, s_k, causal, q_offset, k_offset)
+    work["bytes"] += b * h * (tensors * (s_q + s_k) * d * q.element_size()
+                              + s_q * 4)
 
 
 # ========================================================= split plan
@@ -599,15 +645,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     only the plain version) or raise."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(
-            q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
-            k_offset=k_offset, block_q=block_q, block_k=block_k)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention_fwd runs on CPU or CUDA tensors, "
                          f"not {q.device.type}")
-    return _flash_fwd_cuda(q, k, v, causal, float(sm_scale), int(q_offset),
-                           int(k_offset))
+    with device_span("attention.flash_fwd"):
+        if q.device.type == "cpu":
+            out = flash_attention_fwd_plain(
+                q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+                k_offset=k_offset, block_q=block_q, block_k=block_k)
+        else:
+            out = _flash_fwd_cuda(q, k, v, causal, float(sm_scale),
+                                  int(q_offset), int(k_offset))
+    _count_work("flash_fwd", q, k, causal, q_offset, k_offset)
+    return out
 
 
 def _bwd_kernels():
@@ -772,15 +822,20 @@ def flash_attention_bwd(q, k, v, o, lse, g, *, causal: bool = True,
     version) or raise."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(
-            q, k, v, o, lse, g, causal=causal, sm_scale=sm_scale,
-            q_offset=q_offset, k_offset=k_offset, block_k=block_k)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention_bwd runs on CPU or CUDA tensors, "
                          f"not {q.device.type}")
-    return _flash_bwd_cuda(q, k, v, o, lse, g, causal, float(sm_scale),
-                           int(q_offset), int(k_offset))
+    with device_span("attention.flash_bwd"):
+        if q.device.type == "cpu":
+            out = flash_attention_bwd_plain(
+                q, k, v, o, lse, g, causal=causal, sm_scale=sm_scale,
+                q_offset=q_offset, k_offset=k_offset, block_k=block_k)
+        else:
+            out = _flash_bwd_cuda(q, k, v, o, lse, g, causal,
+                                  float(sm_scale), int(q_offset),
+                                  int(k_offset))
+    _count_work("flash_bwd", q, k, causal, q_offset, k_offset)
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):

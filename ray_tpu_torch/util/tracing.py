@@ -15,18 +15,21 @@ task-event pipeline), so this module adds the two user-visible pieces:
 - :func:`export_otlp` — serialize one trace (or all traces) to an
   OTLP/JSON file (`resourceSpans` shape) that any OpenTelemetry collector
   or Jaeger/Tempo ingester accepts — no otel SDK dependency.
+- :func:`device_span` — a named range of the program's own code in the
+  trace of ``torch.profiler``, on the clock of the device's kernels; it
+  costs one check when no profiler is recording.
+- :func:`counters` — the program's counters (kernel launches, the work
+  each flash call asked for) under dotted names, read where they live.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import sys
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
-
-from ray_tpu_torch._private.ids import _fast_unique
-from ray_tpu_torch._private.worker import require_core
 
 logger = logging.getLogger(__name__)
 
@@ -100,6 +103,8 @@ def trace_span(name: str, attributes: Optional[Dict[str, Any]] = None):
             ...
     """
     from ray_tpu_torch._private.core_worker import _trace_ctx
+    from ray_tpu_torch._private.ids import _fast_unique
+    from ray_tpu_torch._private.worker import require_core
 
     core = require_core()
     trace_id, parent = _trace_ctx.get()
@@ -120,6 +125,43 @@ def trace_span(name: str, attributes: Optional[Dict[str, Any]] = None):
         _emit_span_event(core, span, "FINISHED", time.time())
     finally:
         _trace_ctx.reset(token)
+
+
+# ------------------------------------------------------ the device's trace
+
+SPAN_PREFIX = "ray_tpu_torch."
+
+
+@contextmanager
+def device_span(name: str):
+    """Mark the block as ``ray_tpu_torch.<name>`` in the trace of a
+    recording ``torch.profiler``: a host range on the clock of the kernels
+    it launches, on any thread.  With no profiler recording it only checks
+    that, once.  Nothing else switches it on."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        yield
+        return
+    with torch.autograd.profiler.record_function(SPAN_PREFIX + name):
+        yield
+
+
+def counters() -> Dict[str, int]:
+    """The program's counters, read where they live, under dotted names:
+    ``attention.<kernel>.launches`` and ``.fused_launches`` (the flash
+    kernels' launches), ``attention.<call>.calls``, ``.flops`` and
+    ``.bytes`` (the work each flash forward and backward call asked for,
+    ``ops.attention.KERNEL_WORK``).  A reader takes the difference of
+    two reads: the counts grow, and a run may set them back to 0."""
+    from ray_tpu_torch.ops import attention
+
+    out = {f"attention.{k}.launches": n
+           for k, n in attention.KERNEL_LAUNCHES.items()}
+    out.update({f"attention.{k}.fused_launches": n
+                for k, n in attention.FUSED_LAUNCHES.items()})
+    for call, work in attention.KERNEL_WORK.items():
+        out.update({f"attention.{call}.{k}": n for k, n in work.items()})
+    return out
 
 
 # ------------------------------------------------------------- OTLP export

@@ -75,7 +75,7 @@ data/_executor.py data/_logical.py data/_metrics.py data/aggregate.py
 data/datasource.py data/read_api.py
 tune/search.py tune/schedulers.py tune/session.py tune/_trial_coordinator.py
 tune/tuner.py
-_private/taskfold.py _private/critical_path.py util/tracing.py util/metrics.py
+_private/taskfold.py _private/critical_path.py util/metrics.py
 _lint/__init__.py _lint/core.py _lint/wire_contract.py util/state.py
 dashboard/__init__.py dashboard/__main__.py
 util/actor_pool.py util/queue.py util/multiprocessing.py util/joblib.py
@@ -1235,6 +1235,70 @@ CONFIG_DRIFT = [
     # faked through CUDA_VISIBLE_DEVICES, which is not a RAY_TPU_TORCH_ key)
 """),
 ]
+# the profiler's spans and the program's counters beside trace_span; the
+# core worker imported where a span of the runtime needs it, so the kernels
+# and the trainer import the module without the runtime
+TRACING_DEVICE_SPANS = [
+    ("""  or Jaeger/Tempo ingester accepts — no otel SDK dependency.
+""", """  or Jaeger/Tempo ingester accepts — no otel SDK dependency.
+- :func:`device_span` — a named range of the program's own code in the
+  trace of ``torch.profiler``, on the clock of the device's kernels; it
+  costs one check when no profiler is recording.
+- :func:`counters` — the program's counters (kernel launches, the work
+  each flash call asked for) under dotted names, read where they live.
+"""),
+    ("import logging\nimport time\n",
+     "import logging\nimport sys\nimport time\n"),
+    ("""
+from ray_tpu_torch._private.ids import _fast_unique
+from ray_tpu_torch._private.worker import require_core
+""", ""),
+    ("""    from ray_tpu_torch._private.core_worker import _trace_ctx
+""", """    from ray_tpu_torch._private.core_worker import _trace_ctx
+    from ray_tpu_torch._private.ids import _fast_unique
+    from ray_tpu_torch._private.worker import require_core
+"""),
+    ("""        _trace_ctx.reset(token)
+""", '''        _trace_ctx.reset(token)
+
+
+# ------------------------------------------------------ the device's trace
+
+SPAN_PREFIX = "ray_tpu_torch."
+
+
+@contextmanager
+def device_span(name: str):
+    """Mark the block as ``ray_tpu_torch.<name>`` in the trace of a
+    recording ``torch.profiler``: a host range on the clock of the kernels
+    it launches, on any thread.  With no profiler recording it only checks
+    that, once.  Nothing else switches it on."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        yield
+        return
+    with torch.autograd.profiler.record_function(SPAN_PREFIX + name):
+        yield
+
+
+def counters() -> Dict[str, int]:
+    """The program's counters, read where they live, under dotted names:
+    ``attention.<kernel>.launches`` and ``.fused_launches`` (the flash
+    kernels' launches), ``attention.<call>.calls``, ``.flops`` and
+    ``.bytes`` (the work each flash forward and backward call asked for,
+    ``ops.attention.KERNEL_WORK``).  A reader takes the difference of
+    two reads: the counts grow, and a run may set them back to 0."""
+    from ray_tpu_torch.ops import attention
+
+    out = {f"attention.{k}.launches": n
+           for k, n in attention.KERNEL_LAUNCHES.items()}
+    out.update({f"attention.{k}.fused_launches": n
+                for k, n in attention.FUSED_LAUNCHES.items()})
+    for call, work in attention.KERNEL_WORK.items():
+        out.update({f"attention.{call}.{k}": n for k, n in work.items()})
+    return out
+'''),
+]
 EDITED_COPIES = {
     "scripts/cli.py": [
         ("import time\n\n_ADDR_FILE",
@@ -1332,6 +1396,7 @@ def temp_root() -> str:
     "_private/serve_load_bench.py": SERVE_LOAD_BENCH,
     "_private/pipeline_bench.py": PIPELINE_BENCH,
     "_private/rl_bench.py": RL_BENCH,
+    "util/tracing.py": TRACING_DEVICE_SPANS,
     "_private/worker.py": [
         ("num_tpus: Optional[float]", "num_gpus: Optional[float]"),
         ("if num_tpus is not None:\n                res[\"TPU\"] = "
